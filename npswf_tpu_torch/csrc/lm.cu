@@ -17,7 +17,9 @@
 //     rejected steps, and the relative-chi2 ftol test;
 //   - per-lane budgets: a lane that spends its budget freezes unconverged.
 // Inactive lanes return u0, chi2 = 0, conv = false, n_iter = 0, edm = inf
-// and lambda = lambda0, as the XLA while-loop does.
+// and lambda = lambda0, as the XLA while-loop does. The system evaluation
+// (transform, model, columns, normal equations) is SplineLane::system in
+// spline_system.cuh, which K6 (eval.cu) launches on its own.
 //
 // What bounds it on the card: the per-thread state, 2M + M(M+1)/2 + 8
 // values (33 at M = 5, 71 at M = 9, 383 at M = 25), plus a trial copy of
@@ -31,12 +33,9 @@
 // a lane exits its loop as soon as it is done, so converged lanes free
 // their warp slot early. Compiled with -fmad=false so each product and sum
 // rounds as in the plain PyTorch version.
-#include "common.cuh"
+#include "spline_system.cuh"
 
 namespace npswf {
-
-constexpr int kPad = 16;   // left padding of the segment planes (PAD)
-constexpr int kSeg = 128;  // padded segment-plane width (SEG)
 
 struct LMParams {
   double lam_up, lam_down, lam_min, lam_max, ftol, gtol, eps, gate_lo,
@@ -44,87 +43,12 @@ struct LMParams {
   int fit_lo, nk, n, max_iter;
 };
 
-template <int M>
-__host__ __device__ constexpr int tri(int i, int j) {
-  // packed upper triangle, row-major, i <= j
-  return i * (2 * M - i + 1) / 2 + (j - i);
-}
-
+// The shared system evaluation (spline_system.cuh) plus the LM step.
 template <typename T, int P>
-struct Lane {
-  static constexpr int M = 1 + 2 * P;
-  static constexpr int MT = M * (M + 1) / 2;
-
-  const T* coef;  // [4, SEG] planes of this lane
-  const T* yt;    // [K, N]
-  const T* wt;
-  int lane;
-  T x0;
-  T half[M], mid[M], pseed[M];
-  bool ok[M];
-  T actp[P];
-
-  // Packed normal equations, gradient and chi2 at internal point u.
-  __device__ void system(const LMParams& prm, const T* u, T* A, T* g,
-                         T& chi2) const {
-    T pp[M], dp[M];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      const T pv = mid[i] + half[i] * sin(u[i]);
-      pp[i] = ok[i] ? pv : pseed[i];
-      dp[i] = ok[i] ? half[i] * cos(u[i]) : T(0);
-    }
-    T uu[P], tp[P], amp[P];
-    int base[P];
-#pragma unroll
-    for (int q = 0; q < P; ++q) {
-      tp[q] = pp[1 + 2 * q];
-      amp[q] = pp[2 + 2 * q];
-      const T tau = tp[q] + x0;
-      const T ceil_t = ceil(tau);
-      uu[q] = ceil_t - tau;
-      // slot of bin k = (base + k) mod SEG, base = fit_lo + PAD - ceil(tau)
-      const long long b = (long long)prm.fit_lo + kPad - (long long)ceil_t;
-      base[q] = (int)(((b % kSeg) + kSeg) % kSeg);
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) A[i] = T(0);
-#pragma unroll
-    for (int i = 0; i < M; ++i) g[i] = T(0);
-    chi2 = T(0);
-    const T gate_lo = T(prm.gate_lo), gate_hi = T(prm.gate_hi);
-    for (int k = 0; k < prm.nk; ++k) {
-      const T xk = T(k) + T(prm.fit_lo);
-      const T wk = wt[(size_t)k * prm.n + lane];
-      const T yk = yt[(size_t)k * prm.n + lane];
-      T col[M];
-      T f = pp[0];
-      col[0] = dp[0] * wk;
-#pragma unroll
-      for (int q = 0; q < P; ++q) {
-        const int s = (base[q] + k) & (kSeg - 1);
-        const T ca = coef[s], cb = coef[kSeg + s], cc = coef[2 * kSeg + s],
-                cd = coef[3 * kSeg + s];
-        const T sval = ((cd * uu[q] + cc) * uu[q] + cb) * uu[q] + ca;
-        const T sder = (T(3) * cd * uu[q] + T(2) * cc) * uu[q] + cb;
-        const T rel = xk - tp[q];
-        const bool gate = rel > gate_lo && rel < gate_hi;
-        const T val = (gate ? sval : T(0)) * actp[q];
-        const T der = (gate ? sder : T(0)) * actp[q];
-        f = f + amp[q] * val;
-        col[1 + 2 * q] = -amp[q] * der * dp[1 + 2 * q] * wk;
-        col[2 + 2 * q] = val * dp[2 + 2 * q] * wk;
-      }
-      const T r = (yk - f) * wk;
-#pragma unroll
-      for (int i = 0; i < M; ++i) {
-#pragma unroll
-        for (int j = i; j < M; ++j) A[tri<M>(i, j)] = A[tri<M>(i, j)] + col[i] * col[j];
-        g[i] = g[i] + col[i] * r;
-      }
-      chi2 = chi2 + r * r;
-    }
-  }
+struct Lane : SplineLane<T, P> {
+  using Base = SplineLane<T, P>;
+  static constexpr int M = Base::M;
+  static constexpr int MT = Base::MT;
 
   // MINPACK scaled gradient over the KKT-free components.
   __device__ T gcrit(const LMParams& prm, const T* A, const T* g, T chi2,
@@ -136,7 +60,7 @@ struct Lane {
     for (int i = 0; i < M; ++i) {
       const T di = A[tri<M>(i, i)];
       const bool dead = di <= T(1e-30);
-      const T push = g[i] * (ok[i] ? half[i] * cos(u[i]) : T(0));
+      const T push = g[i] * (this->ok[i] ? this->half[i] * cos(u[i]) : T(0));
       const T si = sin(u[i]);
       const bool kkt = (si > sat && push > T(0)) || (si < -sat && push < T(0));
       const T denom = sqrt(dead ? T(1) : di) * sqc;
@@ -239,21 +163,7 @@ lm_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
     return;
   }
   LaneT s;
-  s.coef = coeffs + (size_t)lane * 4 * kSeg;
-  s.yt = yt;
-  s.wt = wt;
-  s.lane = lane;
-  s.x0 = x0[lane];
-#pragma unroll
-  for (int i = 0; i < M; ++i) {
-    const T l = lo[row + i], h = hi[row + i];
-    s.half[i] = T(0.5) * (h - l);
-    s.mid[i] = T(0.5) * (h + l);
-    s.pseed[i] = pseed[row + i];
-    s.ok[i] = pmask[row + i] != 0 && s.half[i] > T(0);
-  }
-#pragma unroll
-  for (int q = 0; q < P; ++q) s.actp[q] = pmask[row + 2 + 2 * q] ? T(1) : T(0);
+  s.load(coeffs, x0, yt, wt, lo, hi, pseed, pmask, lane);
 
   T A[MT], g[M], chi2;
   s.system(prm, u, A, g, chi2);

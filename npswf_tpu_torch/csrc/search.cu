@@ -1,8 +1,9 @@
-// K2: the whole TSpectrum-parity peak search up to the four sort operands,
-// one thread per lane.
+// K2 and K4: the whole TSpectrum-parity peak search up to the four sort
+// operands (K2) or up to their top-P slots (K4), one thread per lane.
 //
 // Replaces npswf_tpu/ops/pallas_search.py::_search_kernel in operands mode
-// (wrapper search_operands_pallas, select_p = 0). Per lane, over the
+// (K2, wrapper search_operands_pallas, select_p = 0) and in select mode
+// (K4, wrapper search_topk_pallas, select_p = P). Per lane, over the
 // extended frame of size_ext = T + 2*shift bins:
 //   1. extension: straight-line left extrapolation (clamped at 0) and a
 //      constant right edge;
@@ -14,7 +15,10 @@
 //   4. local-max acceptance against specthres * max, 3-bin centroid;
 //   5. the four sort operands in the source-bin frame: negkey (+inf on
 //      rejected bins), centroid, pos_y at the rounded centroid and the aux
-//      spectrum at round(centroid) + aux_offset.
+//      spectrum at round(centroid) + aux_offset;
+//   6. select mode only: P rounds of "smallest negkey, smallest bin on
+//      ties", masking the bin taken, written as [P, N] slots -- the first P
+//      entries of the stable sort that follows K2, with no sort.
 // The semantics are those of the XLA path, npswf_tpu/ops/peak_search.py:
 // 124-297, which the plain PyTorch version in ops/peak_search.py follows.
 //
@@ -25,7 +29,10 @@
 // What the design does about it: the scratch is laid out lanes-minor,
 // [buffer][row][lane], so that the 32 threads of a warp touching the same
 // row hit 32 neighbouring addresses (coalesced). The input and output
-// spectra are [T, N] for the same reason. Each spectrum row has 16-row
+// spectra are [T, N] ([P, N] in select mode) for the same reason. K4 reads
+// the same inputs as K2 and writes P rows instead of T: its bound at P = 12
+// is 2 x 30.4 MB in and 4 x 3.3 MB out in fp32 (74 MB); the selection
+// re-reads the lane's four operand rows from its scratch, P x T loads. Each spectrum row has 16-row
 // margins: zeros for the Gold correlations, copies of the edge values for
 // the Markov neighbours, so no inner loop tests its bounds. The margins
 // bound the Gold reach lh_gold - 1 and the Markov window to 16; the
@@ -39,7 +46,7 @@ enum Buf { kExt = 0, kY, kLogw, kSabs, kPvec, kXa, kXb, kNumBuf };
 
 struct SearchParams {
   int ssize, shift, size_ext, kfit, lh_gold, posit, aver_window, iters,
-      aux_offset;
+      aux_offset, select_p;
   double m0, m1, det, area, specthres;
 };
 
@@ -212,11 +219,44 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
     const T py = (kr - e >= -1 && kr - e <= 1) ? pad_src(kr) : pad_src(e);
     const int tgt = min(max(k_round + p.aux_offset, 0), ssize - 1) + shift;
     const T ax = (tgt - e >= cmin && tgt - e <= cmax) ? pad_aux(tgt) : pad_aux(e);
-    const size_t o = (size_t)t * n + lane;
-    negkey[o] = accept ? -key : T(INFINITY);
-    cent[o] = a;
-    posy[o] = py;
-    auxsel[o] = ax;
+    const T nk = accept ? -key : T(INFINITY);
+    if (p.select_p == 0) {
+      const size_t o = (size_t)t * n + lane;
+      negkey[o] = nk;
+      cent[o] = a;
+      posy[o] = py;
+      auxsel[o] = ax;
+    } else {
+      // the Markov and Gold buffers are free now: keep the operands there
+      at(kY, t) = nk;
+      at(kLogw, t) = a;
+      at(kSabs, t) = py;
+      at(kPvec, t) = ax;
+    }
+  }
+  if (p.select_p == 0) return;
+
+  // ---- 6. top-P selection (select mode) ----------------------------
+  // P rounds: the smallest negkey, the smallest bin among equal keys (the
+  // strict < keeps the first), then that bin is masked -- the first P
+  // entries of a stable ascending sort on negkey. NaN keys are never taken
+  // (a sort puts them last); slots past the accepted count get +inf.
+  for (int q = 0; q < p.select_p; ++q) {
+    T best = T(INFINITY);
+    int hit = -1;
+    for (int t = 0; t < ssize; ++t) {
+      const T v = at(kY, t);
+      if (v < best) {
+        best = v;
+        hit = t;
+      }
+    }
+    const size_t o = (size_t)q * n + lane;
+    negkey[o] = best;
+    cent[o] = hit < 0 ? T(0) : at(kLogw, hit);
+    posy[o] = hit < 0 ? T(0) : at(kSabs, hit);
+    auxsel[o] = hit < 0 ? T(0) : at(kPvec, hit);
+    if (hit >= 0) at(kY, hit) = T(INFINITY);
   }
 }
 
@@ -236,12 +276,15 @@ extern "C" int npswf_search_scratch_rows(int size_ext) {
   return npswf::kNumBuf * (size_ext + 2 * npswf::kMarg);
 }
 
-extern "C" int npswf_search_operands(
+// select_p = 0: the four operands, each [T, N]; select_p = P > 0: the
+// first P slots of their stable sort on negkey, each [P, N].
+extern "C" int npswf_search(
     int dtype, const void* src, const void* aux, const void* resp,
     const void* bvec, void* scratch, void* negkey, void* cent, void* posy,
     void* auxsel, int n, int ssize, int shift, int kfit, int lh_gold,
-    int posit, int aver_window, int iters, int aux_offset, double m0,
-    double m1, double det, double area, double specthres, void* stream) {
+    int posit, int aver_window, int iters, int aux_offset, int select_p,
+    double m0, double m1, double det, double area, double specthres,
+    void* stream) {
   npswf::SearchParams p;
   p.ssize = ssize;
   p.shift = shift;
@@ -252,6 +295,7 @@ extern "C" int npswf_search_operands(
   p.aver_window = aver_window;
   p.iters = iters;
   p.aux_offset = aux_offset;
+  p.select_p = select_p;
   p.m0 = m0;
   p.m1 = m1;
   p.det = det;

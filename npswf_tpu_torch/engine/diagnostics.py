@@ -12,7 +12,7 @@ from typing import Dict
 
 import torch
 
-from npswf_tpu.core.config import NPSConfig
+from npswf_tpu_torch.core.config import NPSConfig
 
 BINMIN = 30   # cosmic-pulse window (ref :1029-1030)
 BINMAX = 109

@@ -24,7 +24,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from npswf_tpu.core.config import NPSConfig
+from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch.engine.diagnostics import block_diagnostics
 from npswf_tpu_torch.fit.errors import error_model
 from npswf_tpu_torch.fit.lm import FitInputs, fit_waveforms

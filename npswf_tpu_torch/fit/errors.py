@@ -10,7 +10,7 @@ import math
 
 import torch
 
-from npswf_tpu.core.config import NPSConfig
+from npswf_tpu_torch.core.config import NPSConfig
 
 
 def error_model(cfg: NPSConfig, y: torch.Tensor) -> torch.Tensor:

@@ -12,9 +12,14 @@ reference, TEST_2.C:691-791). Every fit lane is solved at once:
   for each rung m in ``lm_stage3_pullbacks``; still-failed lanes report
   their seeds.
 
-``lm_loop`` is the generic iteration, the plain version of the K3 kernel;
-``lm_solve`` sends spline solves to the kernel wrapper (fit/lm_kernel.py)
-unless ``plain=True``.
+``lm_solve`` routes as the reference package does: a spline solve within
+``pallas_lm_max_pulses`` runs whole on the K3 kernel (fit/lm_kernel.py)
+when ``use_pallas_lm`` is set and neither fused flag is; every other solve
+runs the generic iteration ``lm_loop``, whose system evaluation is K6
+(``use_fused_system``), K5 then K7 (``use_fused_neq``, P <= NARROW_P), or
+the model's evaluation (K5 for the planes model) then the normal equations
+as a batched product. ``plain=True`` runs the plain version of every
+kernel instead.
 """
 from __future__ import annotations
 
@@ -22,8 +27,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from npswf_tpu.core.config import NPSConfig
-from npswf_tpu_torch import kernels
+from npswf_tpu_torch.core.config import NPSConfig
+from npswf_tpu_torch.fit.eval_kernel import (NARROW_P, dp_du, fused_eval,
+                                             fused_eval_plain, fused_neq,
+                                             fused_neq_plain, fused_system,
+                                             fused_system_plain, to_physical)
 from npswf_tpu_torch.fit.linalg import cholesky_solve
 from npswf_tpu_torch.models.waveform import WaveformModel, get_model
 
@@ -89,54 +97,57 @@ def _to_internal(p, lo, hi, param_mask):
     return torch.where(param_mask & (half > 0), u, 0.0)
 
 
-def _to_physical(u, lo, hi, p_seed, param_mask):
-    mid = 0.5 * (lo + hi)
-    half = 0.5 * (hi - lo)
-    p = mid + half * torch.sin(u)
-    return torch.where(param_mask & (half > 0), p, p_seed)
-
-
-def _dp_du(u, lo, hi, param_mask):
-    half = 0.5 * (hi - lo)
-    return torch.where(param_mask & (half > 0), half * torch.cos(u), 0.0)
-
-
 def model_system(cfg: NPSConfig, model: WaveformModel, aux, y, w, pulse_mask,
-                 lo, hi, p_seed, param_mask):
+                 lo, hi, p_seed, param_mask, variant: str = "model",
+                 plain: bool = False):
     """u -> (A [N,M,M], g [N,M], chi2 [N]) for ``model`` on data y, w=1/sigma.
 
-    The sums over the fit bins run in bin order, the K3 kernel's order, so
-    that on the card the kernel and this plain version round alike."""
-    xgrid = torch.arange(cfg.fit_lo_bin, cfg.fit_hi_bin, dtype=y.dtype,
-                         device=y.device)
+    ``variant``: "model" evaluates ``model.eval_and_jac`` and forms the
+    normal equations as batched products (the reference package leaves
+    them to XLA); "fused_neq" runs K5 then K7 and "fused_system" K6, both
+    on the padded segment planes. ``plain`` runs the kernels' plain
+    versions."""
+    if variant == "fused_system":
+        run = fused_system_plain if plain else fused_system
 
-    def system(u):
-        p = _to_physical(u, lo, hi, p_seed, param_mask)
-        f, Jp = model.eval_and_jac(cfg, p, aux, xgrid, pulse_mask)
-        r = (y - f) * w
-        Ju = Jp * _dp_du(u, lo, hi, param_mask)[:, None, :] * w[:, :, None]
-        N, K, M = Ju.shape
-        A = torch.zeros((N, M, M), dtype=u.dtype, device=u.device)
-        g = torch.zeros((N, M), dtype=u.dtype, device=u.device)
-        chi2 = torch.zeros((N,), dtype=u.dtype, device=u.device)
-        for k in range(K):
-            c, rk = Ju[:, k, :], r[:, k]
-            A = A + c[:, :, None] * c[:, None, :]
-            g = g + c * rk[:, None]
-            chi2 = chi2 + rk * rk
-        return A, g, chi2
+        def system(u):
+            return run(cfg, aux["coeffs_pad"], aux["x0"], y, w, u, lo, hi,
+                       p_seed, param_mask)
+    elif variant == "fused_neq":
+        ev = fused_eval_plain if plain else fused_eval
+        neq = fused_neq_plain if plain else fused_neq
+
+        def system(u):
+            p = to_physical(u, lo, hi, p_seed, param_mask)
+            f, jt, ja = ev(cfg, aux["coeffs_pad"], aux["x0"], p[:, 1::2],
+                           p[:, 2::2], p[:, 0], pulse_mask)
+            return neq(cfg, y, w, f, jt, ja, dp_du(u, lo, hi, param_mask))
+    elif variant == "model":
+        xgrid = torch.arange(cfg.fit_lo_bin, cfg.fit_hi_bin, dtype=y.dtype,
+                             device=y.device)
+
+        def system(u):
+            p = to_physical(u, lo, hi, p_seed, param_mask)
+            f, Jp = model.eval_and_jac(cfg, p, aux, xgrid, pulse_mask,
+                                       plain=plain)
+            r = (y - f) * w
+            Ju = Jp * dp_du(u, lo, hi, param_mask)[:, None, :] * w[:, :, None]
+            A = torch.bmm(Ju.transpose(1, 2), Ju)
+            g = torch.bmm(Ju.transpose(1, 2), r[:, :, None])[:, :, 0]
+            return A, g, torch.sum(r * r, dim=1)
+    else:
+        raise ValueError(f"unknown system variant {variant!r}")
     return system
 
 
 def lm_loop(cfg: NPSConfig, system, u0, lo, hi, param_mask, active,
             max_iter: int, lam0, iter_budget=None):
-    """The generic LM iteration from internal params u0 on ``active`` lanes:
-    the plain version of the K3 kernel (npswf_tpu/fit/lm.py:121-310).
+    """The generic LM iteration from internal params u0 on ``active`` lanes
+    (npswf_tpu/fit/lm.py:121-310), K3's loop in plain PyTorch.
 
     ``iter_budget`` [N] gives each lane its own (<= max_iter) budget; a lane
     that spends it freezes unconverged. ``lam0`` is a scalar or [N].
     Returns (u, chi2, converged, n_iter, edm, lam)."""
-    kernels.plain_calls[kernels.LM_SOLVE] += 1
     dtype, dev = u0.dtype, u0.device
     N, M = u0.shape
     eye = torch.eye(M, dtype=dtype, device=dev)
@@ -164,7 +175,7 @@ def lm_loop(cfg: NPSConfig, system, u0, lo, hi, param_mask, active,
         diag = torch.diagonal(A, dim1=1, dim2=2)
         dead = diag <= 1e-30
         sinu = torch.sin(u)
-        push = g * _dp_du(u, lo, hi, param_mask)
+        push = g * dp_du(u, lo, hi, param_mask)
         kkt = (((sinu > SAT_THRESH) & (push > 0))
                | ((sinu < -SAT_THRESH) & (push < 0)))
         denom = (torch.sqrt(torch.where(dead, 1.0, diag))
@@ -213,8 +224,23 @@ def lm_loop(cfg: NPSConfig, system, u0, lo, hi, param_mask, active,
 
 
 def _kernel_lm_active(cfg: NPSConfig, model: WaveformModel, P: int) -> bool:
-    """Spline solves within ``pallas_lm_max_pulses`` run on the K3 kernel."""
-    return model.name == "spline_ref_pallas" and P <= cfg.pallas_lm_max_pulses
+    """Whether the whole-loop K3 kernel serves this solve (the reference
+    package's _pallas_lm_active): spline planes model, P within
+    ``pallas_lm_max_pulses``, ``use_pallas_lm`` set and no fused flag."""
+    return (cfg.use_pallas_lm and P <= cfg.pallas_lm_max_pulses
+            and model.name == "spline_ref_pallas"
+            and not cfg.use_fused_system and not cfg.use_fused_neq)
+
+
+def _system_variant(cfg: NPSConfig, model: WaveformModel, P: int) -> str:
+    """The generic loop's system evaluation (npswf_tpu/fit/lm.py:161-200)."""
+    if model.name != "spline_ref_pallas":
+        return "model"
+    if cfg.use_fused_system:
+        return "fused_system"
+    if cfg.use_fused_neq and P <= NARROW_P:
+        return "fused_neq"
+    return "model"
 
 
 def lm_solve(cfg: NPSConfig, model: WaveformModel, inp: FitInputs, u0, lo, hi,
@@ -229,13 +255,15 @@ def lm_solve(cfg: NPSConfig, model: WaveformModel, inp: FitInputs, u0, lo, hi,
     for k, v in cfg.model_aux:
         base_aux[k] = torch.full_like(inp.x0, v)
     aux = model.prepare_aux(cfg, base_aux)
-    if not plain and _kernel_lm_active(cfg, model, inp.t_seed.shape[1]):
-        from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel
-        return lm_solve_kernel(cfg, aux["coeffs_pad"], inp.x0, inp.y, w, u0,
-                               lo, hi, p_seed, param_mask, active, max_iter,
-                               lam0, iter_budget)
+    P = inp.t_seed.shape[1]
+    if _kernel_lm_active(cfg, model, P):
+        from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel, lm_solve_plain
+        run = lm_solve_plain if plain else lm_solve_kernel
+        return run(cfg, aux["coeffs_pad"], inp.x0, inp.y, w, u0, lo, hi,
+                   p_seed, param_mask, active, max_iter, lam0, iter_budget)
     system = model_system(cfg, model, aux, inp.y, w, inp.pulse_mask, lo, hi,
-                          p_seed, param_mask)
+                          p_seed, param_mask,
+                          variant=_system_variant(cfg, model, P), plain=plain)
     return lm_loop(cfg, system, u0, lo, hi, param_mask, active, max_iter,
                    lam0, iter_budget)
 
@@ -328,7 +356,7 @@ def _combine(cfg, inp, u1, chi2_1, conv1, it1, edm1, failed1, u2, chi2_2,
     u = torch.where(use2[:, None], u2, u1)
     chi2 = torch.where(use2, chi2_2, chi2_1)
     converged = conv1 | use2
-    params = _to_physical(u, lo, hi, p_seed, pm)
+    params = to_physical(u, lo, hi, p_seed, pm)
     # still-failed lanes report their seeds (ref :774-791 fallback)
     params = torch.where((inp.active & ~converged)[:, None], p_seed, params)
     nfree = 1 + 2 * inp.pulse_mask.sum(dim=1)

@@ -12,19 +12,23 @@ from typing import Optional, Tuple
 
 import torch
 
-from npswf_tpu.core.config import NPSConfig
+from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch import kernels
-from npswf_tpu_torch.fit.lm import CHOL_EPS, SAT_THRESH, lm_loop, model_system
-from npswf_tpu_torch.models.waveform import SEG, get_model
+from npswf_tpu_torch.fit.eval_kernel import SEG, system_plain_body
+from npswf_tpu_torch.fit.lm import CHOL_EPS, SAT_THRESH, lm_loop
 
 
 def lm_solve_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
                    param_mask, active, max_iter: int, lam0, iter_budget=None):
     """The plain version of the kernel, on any device: the generic LM
-    iteration (``fit.lm.lm_loop``) on the same padded segment planes."""
-    system = model_system(cfg, get_model("spline_ref_pallas"),
-                          {"coeffs_pad": coeffs_pad, "x0": x0}, y, w,
-                          param_mask[:, 2::2], lo, hi, p_seed, param_mask)
+    iteration (``fit.lm.lm_loop``) with the plain K6 arithmetic (the plain
+    K5 evaluation, then the normal equations summed in bin order), the
+    system K3 evaluates inside its loop."""
+    kernels.plain_calls[kernels.LM_SOLVE] += 1
+
+    def system(u):
+        return system_plain_body(cfg, coeffs_pad, x0, y, w, u, lo, hi, p_seed,
+                                 param_mask)
     return lm_loop(cfg, system, u0, lo, hi, param_mask, active, max_iter,
                    lam0, iter_budget)
 

@@ -1,8 +1,9 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes`` (pointers
-and the stream travel as ``c_void_p``). The build runs on first use, goes to
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
+process a source, all started together, and linked into one shared library
+with a plain C interface, loaded with ``ctypes`` (pointers and the stream
+travel as ``c_void_p``). The build runs on first use, goes to
 ``build/npswf_tpu_torch/`` beside the package, is keyed by a hash of the
 sources and flags, and is guarded by an ``fcntl`` lock so concurrent
 processes build it once. A missing ``nvcc`` or a failed build raises: there
@@ -31,12 +32,17 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "npswf_tpu_torch"
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"   # the toolkit's default prefix
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 MATCHED_FILTER = "matched_filter"
 SEARCH_OPERANDS = "search_operands"
+SEARCH_TOPK = "search_topk"
 LM_SOLVE = "lm_solve"
-KERNEL_NAMES = (MATCHED_FILTER, SEARCH_OPERANDS, LM_SOLVE)
+FUSED_EVAL = "fused_eval"
+FUSED_NEQ = "fused_neq"
+FUSED_SYSTEM = "fused_system"
+KERNEL_NAMES = (MATCHED_FILTER, SEARCH_OPERANDS, SEARCH_TOPK, LM_SOLVE,
+                FUSED_EVAL, FUSED_NEQ, FUSED_SYSTEM)
 
 launches: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
@@ -51,9 +57,13 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     "npswf_matched_filter": [_I] + [_P] * 5 + [_I] * 6 + [_P],
     "npswf_search_scratch_rows": [_I],
-    "npswf_search_operands": [_I] + [_P] * 9 + [_I] * 9 + [_D] * 5 + [_P],
+    "npswf_search": [_I] + [_P] * 9 + [_I] * 10 + [_D] * 5 + [_P],
     "npswf_lm_supported": [_I],
     "npswf_lm_solve": [_I, _I, _P, _P] + [_I] * 4 + [_D] * 11 + [_P],
+    "npswf_fused_eval": [_I] + [_P] * 9 + [_I] * 4 + [_D] * 2 + [_P],
+    "npswf_fused_neq": [_I, _I, _P, _P, _I, _I, _P],
+    "npswf_system_supported": [_I],
+    "npswf_fused_system": [_I, _I, _P, _P] + [_I] * 3 + [_D] * 2 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -87,8 +97,39 @@ def library_path() -> Path:
     return BUILD_DIR / f"libnpswf_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _compile_and_link(so: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    nvcc = _nvcc()
+    cu, _ = _sources()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(f), "-o", str(o)]
+            for f, o in zip(cu, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    tmp = so.with_suffix(f".tmp{os.getpid()}.so")
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", *map(str, objs), "-o", str(tmp)]
+    log = [" ".join(c) + "\n" + o + e for c, (o, e) in zip(cmds, outs)]
+    failed = [(c, p.returncode, e) for c, p, (_, e) in zip(cmds, procs, outs)
+              if p.returncode != 0]
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append((link, res.returncode, res.stderr))
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if failed:
+        c, code, err = failed[0]
+        raise RuntimeError(f"nvcc failed ({code}) on {c[-3]}:\n{err[-6000:]}")
+    os.replace(tmp, so)
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into the shared library (once per source hash)."""
+    """Compile csrc/*.cu and link the shared library (once per source
+    hash)."""
     so = library_path()
     if so.exists():
         return so
@@ -97,17 +138,7 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not so.exists():
-                cu, _ = _sources()
-                tmp = so.with_suffix(f".tmp{os.getpid()}.so")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-                       *map(str, cu)]
-                res = subprocess.run(cmd, capture_output=True, text=True)
-                (BUILD_DIR / "build.log").write_text(
-                    " ".join(cmd) + "\n" + res.stdout + res.stderr)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({res.returncode}):\n{res.stderr[-6000:]}")
-                os.replace(tmp, so)
+                _compile_and_link(so)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
     return so

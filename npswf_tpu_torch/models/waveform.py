@@ -9,33 +9,19 @@ with ref() the block's cubic-spline reference waveform, evaluated with its
 analytic Jacobian in the physical parameter layout
 ``p = [ped, t_0, A_0, t_1, A_1, ...]``. Two evaluations of the same model:
 ``spline_ref`` selects segments by gather (ops/spline.py); ``spline_ref_pallas``
-reads the padded segment planes (``coeffs_pad``) the way the K3 kernel does.
+reads the padded segment planes (``coeffs_pad``) through the K5 kernel
+(fit/eval_kernel.py), the evaluation K3 runs inside its loop.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
-from npswf_tpu.core.config import NPSConfig
+from npswf_tpu_torch.core.config import NPSConfig
+from npswf_tpu_torch.fit.eval_kernel import (fused_eval, fused_eval_plain,
+                                             pad_coeffs)
 from npswf_tpu_torch.ops.spline import spline_eval_grad
-
-# Copied from npswf_tpu/fit/pallas_eval.py (that module imports jax). Its
-# KP fit-bin padding has no counterpart: the port loops over the real bins.
-PAD = 16         # left padding of the segment planes (wrap margin)
-SEG = 128        # padded segment-plane width: must exceed PAD + 109
-
-
-def pad_coeffs(coeffs: torch.Tensor) -> torch.Tensor:
-    """[N, S, 4] -> [N, 4, SEG] padded coefficient planes (copied from
-    npswf_tpu/fit/pallas_eval.py::pad_coeffs)."""
-    N, S, _ = coeffs.shape
-    if S + PAD > SEG:
-        raise ValueError(f"spline has {S} segments; SEG={SEG} fits at most "
-                         f"{SEG - PAD} (PAD={PAD})")
-    planes = coeffs.transpose(1, 2)                       # [N, 4, S]
-    return F.pad(planes, (PAD, SEG - PAD - S)).contiguous()
 
 
 def _interleave_jac(ped_col: torch.Tensor, jt, ja) -> torch.Tensor:
@@ -57,9 +43,10 @@ class WaveformModel:
 
     def eval_and_jac(self, cfg: NPSConfig, params: torch.Tensor,
                      aux: Dict[str, torch.Tensor], xgrid: torch.Tensor,
-                     pulse_mask: torch.Tensor
+                     pulse_mask: torch.Tensor, plain: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """params [N, M] -> (f [N, K], J [N, K, M])."""
+        """params [N, M] -> (f [N, K], J [N, K, M]); ``plain`` runs the
+        plain version of any kernel the evaluation uses."""
         raise NotImplementedError
 
 
@@ -69,7 +56,7 @@ class SplineRefModel(WaveformModel):
 
     name = "spline_ref"
 
-    def eval_and_jac(self, cfg, params, aux, xgrid, pulse_mask):
+    def eval_and_jac(self, cfg, params, aux, xgrid, pulse_mask, plain=False):
         coeffs, x0 = aux["coeffs"], aux["x0"]
         N, M = params.shape
         P = (M - 1) // 2
@@ -89,11 +76,11 @@ class SplineRefModel(WaveformModel):
 
 
 class SplineRefPlanesModel(WaveformModel):
-    """The same model read from the padded segment planes: for a pulse at
-    time t, u = ceil(t + x0) - (t + x0) is constant across the fit bins and
-    bin x reads slot (x - ceil(t + x0) + PAD) mod SEG. This is the
-    evaluation the K3 kernel runs; it assumes xgrid = [fit_lo_bin,
-    fit_hi_bin), the only grid the pipeline fits."""
+    """The same model read from the padded segment planes by K5
+    (``fused_eval``): for a pulse at time t, u = ceil(t + x0) - (t + x0) is
+    constant across the fit bins and bin x reads slot (x - ceil(t + x0) +
+    PAD) mod SEG. It assumes xgrid = [fit_lo_bin, fit_hi_bin), the only grid
+    the pipeline fits."""
 
     name = "spline_ref_pallas"
 
@@ -103,37 +90,11 @@ class SplineRefPlanesModel(WaveformModel):
             out["coeffs_pad"] = pad_coeffs(aux["coeffs"])
         return out
 
-    def eval_and_jac(self, cfg, params, aux, xgrid, pulse_mask):
-        coeffs_pad, x0 = aux["coeffs_pad"], aux["x0"]
-        N, M = params.shape
-        P = (M - 1) // 2
-        K = xgrid.shape[0]
-        dtype = params.dtype
-        k = torch.arange(K, device=params.device)
-        xk = k.to(dtype) + cfg.fit_lo_bin
-        f = params[:, :1].expand(N, K)
-        jt, ja = [], []
-        for p in range(P):
-            t_par = params[:, 1 + 2 * p:2 + 2 * p]              # [N, 1]
-            amp = params[:, 2 + 2 * p:3 + 2 * p]
-            tau = t_par + x0[:, None]
-            ceil_t = torch.ceil(tau)
-            uu = ceil_t - tau
-            slot = torch.remainder(
-                cfg.fit_lo_bin + PAD - ceil_t.long() + k[None, :], SEG)
-            a, b, c, d = torch.gather(
-                coeffs_pad, 2, slot[:, None, :].expand(N, 4, K)).unbind(1)
-            sval = ((d * uu + c) * uu + b) * uu + a
-            sder = (3.0 * d * uu + 2.0 * c) * uu + b
-            rel = xk - t_par
-            gate = (rel > cfg.spline_gate_lo) & (rel < cfg.ntime - 1)
-            actp = pulse_mask[:, p:p + 1].to(dtype)
-            val = torch.where(gate, sval, 0.0) * actp
-            der = torch.where(gate, sder, 0.0) * actp
-            f = f + amp * val
-            jt.append(-amp * der)
-            ja.append(val)
-        J = _interleave_jac(torch.ones_like(f), jt, ja)
+    def eval_and_jac(self, cfg, params, aux, xgrid, pulse_mask, plain=False):
+        run = fused_eval_plain if plain else fused_eval
+        f, jt, ja = run(cfg, aux["coeffs_pad"], aux["x0"], params[:, 1::2],
+                        params[:, 2::2], params[:, 0], pulse_mask)
+        J = _interleave_jac(torch.ones_like(f), jt.unbind(1), ja.unbind(1))
         return f, J
 
 

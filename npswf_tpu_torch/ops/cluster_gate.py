@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from npswf_tpu.core.config import NPSConfig
+from npswf_tpu_torch.core.config import NPSConfig
 
 # neighbour order as in ref TEST_2.C:247-248 (dR, dC)
 _NEIGHBORS = ((0, 1), (0, -1), (1, 0), (-1, 0), (1, 1), (1, -1), (-1, 1), (-1, -1))

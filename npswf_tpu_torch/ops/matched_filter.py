@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from npswf_tpu.core.config import NPSConfig
+from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch import kernels
 
 

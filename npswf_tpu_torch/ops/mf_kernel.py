@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from npswf_tpu.core.config import NPSConfig
+from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch import kernels
 from npswf_tpu_torch.ops.matched_filter import matched_filter
 

@@ -14,8 +14,10 @@ Markov smoothing with averWindow 3:
    sort, TSpectrum's insertion order).
 
 ``search_operands`` (steps 1-4 and the four sort operands) is the plain
-version of the K2 kernel (ops/search_kernel.py); ``tspectrum_search`` and
-``find_pulses`` run the kernel unless ``plain=True``.
+version of the K2 kernel and ``search_topk`` (the same, then the first P
+slots of step 5) that of the K4 kernel (both in ops/search_kernel.py);
+``tspectrum_search`` and ``find_pulses`` run K2 then the sort, or K4 under
+``pallas_search_select``, unless ``plain=True``.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from npswf_tpu.core.config import NPSConfig
+from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch import kernels
 from npswf_tpu_torch.ops.matched_filter import matched_filter
 from npswf_tpu_torch.ops.mf_kernel import matched_filter_kernel
@@ -98,6 +100,29 @@ def search_operands(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
     (source at the rounded centroid) and aux at round(centroid) + aux_offset
     (the XLA path of npswf_tpu/ops/peak_search.py:124-297)."""
     kernels.plain_calls[kernels.SEARCH_OPERANDS] += 1
+    return _operands(cfg, src, aux, aux_offset)
+
+
+def search_topk(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
+                aux_offset: int, P: int):
+    """The plain version of K4: the sort operands, then the first P slots
+    of their stable sort on negkey (descending amplitude, ties in bin
+    order), each [N, P]. Slots past a lane's accepted peaks hold negkey
+    +inf; their other values are masked by the caller."""
+    kernels.plain_calls[kernels.SEARCH_TOPK] += 1
+    return _select(_operands(cfg, src, aux, aux_offset), P)
+
+
+def _select(operands, P: int):
+    negkey, cent, pos_y, aux_sel = operands
+    neg_srt, order = torch.sort(negkey, dim=1, stable=True)
+    order = order[:, :P]
+    return (neg_srt[:, :P], torch.gather(cent, 1, order),
+            torch.gather(pos_y, 1, order), torch.gather(aux_sel, 1, order))
+
+
+def _operands(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
+              aux_offset: int):
     dtype, dev = src.dtype, src.device
     N, ssize = src.shape
     shift, size_ext, resp_np, area, lh_gold, posit, bvec_np = \
@@ -239,21 +264,21 @@ def tspectrum_search(cfg: NPSConfig, src: torch.Tensor,
     ``aux`` [N, T], a fourth output [N, P] samples it at
     clip(round(centroid) + aux_offset, 0, T-1).
     """
-    from npswf_tpu_torch.ops.search_kernel import search_operands_kernel
+    from npswf_tpu_torch.ops.search_kernel import (search_operands_kernel,
+                                                   search_topk_kernel)
     P = cfg.maxwfpulses
     aux_in = (src if aux is None else aux).to(src.dtype)
-    run = search_operands if plain else search_operands_kernel
-    negkey, cent, pos_y, aux_sel = run(cfg, src, aux_in, aux_offset)
-    # stable sort on the key: descending amplitude, ties in bin order
-    neg_srt, order = torch.sort(negkey, dim=1, stable=True)
-    order = order[:, :P]
-    valid = neg_srt[:, :P] < math.inf
-    k_sel = torch.floor(torch.gather(cent, 1, order) + 0.5)
-    pos_x = torch.where(valid, k_sel + 0.5, 0.0)
-    pos_y = torch.where(valid, torch.gather(pos_y, 1, order), 0.0)
+    if cfg.pallas_search_select:
+        run = search_topk if plain else search_topk_kernel
+        neg, cent, pos_y, aux_sel = run(cfg, src, aux_in, aux_offset, P)
+    else:
+        run = search_operands if plain else search_operands_kernel
+        neg, cent, pos_y, aux_sel = _select(run(cfg, src, aux_in, aux_offset), P)
+    valid = neg < math.inf
+    pos_x = torch.where(valid, torch.floor(cent + 0.5) + 0.5, 0.0)
+    pos_y = torch.where(valid, pos_y, 0.0)
     if aux is not None:
-        return pos_x, pos_y, valid, torch.where(
-            valid, torch.gather(aux_sel, 1, order), 0.0)
+        return pos_x, pos_y, valid, torch.where(valid, aux_sel, 0.0)
     return pos_x, pos_y, valid
 
 

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from npswf_tpu.core.config import NPSConfig
+from npswf_tpu_torch.core.config import NPSConfig
 
 
 def _segments(coeffs: torch.Tensor, x0: torch.Tensor, t: torch.Tensor):

@@ -20,17 +20,24 @@ from npswf_tpu.fit.lm import lm_solve as jax_lm_solve
 from npswf_tpu.fit.pallas_eval import pad_coeffs as jax_pad_coeffs
 from npswf_tpu.fit.pallas_lm import lm_solve_pallas
 from npswf_tpu.models.waveform import get_model as jax_get_model
+from npswf_tpu_torch.core.config import NPSConfig as TorchConfig
 from npswf_tpu_torch.fit import lm as tlm
 from npswf_tpu_torch.fit.errors import error_model
+from npswf_tpu_torch.fit.eval_kernel import pad_coeffs
 from npswf_tpu_torch.fit.linalg import cholesky_solve
 from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel
-from npswf_tpu_torch.models.waveform import get_model, pad_coeffs
+from npswf_tpu_torch.models.waveform import get_model
 from tests.test_fit import _build_inputs
 from tests.test_pallas_lm import _assert_match, _narrow
 
 
 def _t(a):
     return torch.as_tensor(np.array(a))
+
+
+def _port(cfg):
+    """The port's own config with the JAX config's values."""
+    return TorchConfig.from_json(cfg.to_json())
 
 
 def _to_torch(inp):
@@ -40,7 +47,7 @@ def _to_torch(inp):
 def _solve_ours(cfg, inp, max_iter, lam0, iter_budget=None):
     lo, hi, p_seed, pm, u0, _, _ = jax_prepare(cfg, inp)
     out = lm_solve_kernel(
-        cfg, pad_coeffs(_t(inp.coeffs)), _t(inp.x0), _t(inp.y),
+        _port(cfg), pad_coeffs(_t(inp.coeffs)), _t(inp.x0), _t(inp.y),
         1.0 / _t(inp.sigma), _t(u0), _t(lo), _t(hi), _t(p_seed), _t(pm),
         _t(inp.active), max_iter, lam0,
         None if iter_budget is None else _t(iter_budget))
@@ -106,7 +113,7 @@ def test_fit_waveforms_full_ladder_matches(cfg, cal, model_name):
     inp = _narrow(inp)
     ref = jax_fit_waveforms(cfg.replace(use_pallas=False, lm_stage1_tier=0),
                             inp, "spline_ref")
-    ours = tlm.fit_waveforms(cfg, _to_torch(inp), model_name)
+    ours = tlm.fit_waveforms(_port(cfg), _to_torch(inp), model_name)
     assert not np.asarray(ref.converged_stage1).all()   # stage 2+ exercised
     for f in ("converged", "converged_stage1", "n_iter"):
         np.testing.assert_array_equal(getattr(ours, f).numpy(),
@@ -125,8 +132,8 @@ def test_fit_waveforms_plain_flag_matches_kernel_route(cfg, cal):
     """plain=True (generic loop) and the K3 wrapper's CPU route agree."""
     inp, *_ = _build_inputs(cfg, cal, n_lanes=16, seed=14, max_pulses=2)
     inp = _to_torch(_narrow(inp))
-    a = tlm.fit_waveforms(cfg, inp, "spline_ref_pallas")
-    b = tlm.fit_waveforms(cfg, inp, "spline_ref_pallas", plain=True)
+    a = tlm.fit_waveforms(_port(cfg), inp, "spline_ref_pallas")
+    b = tlm.fit_waveforms(_port(cfg), inp, "spline_ref_pallas", plain=True)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
@@ -135,7 +142,7 @@ def test_error_model_and_cholesky_match_jax(cfg):
     rng = np.random.default_rng(3)
     y = rng.normal(0, 30, (8, 110))
     # XLA may turn the divide by err_scale into a multiply: last-ulp only
-    np.testing.assert_allclose(error_model(cfg, torch.as_tensor(y)).numpy(),
+    np.testing.assert_allclose(error_model(_port(cfg), torch.as_tensor(y)).numpy(),
                                np.asarray(jax_error_model(cfg, jnp.asarray(y))),
                                rtol=4e-16, atol=0)
     X = rng.normal(size=(6, 9, 9))

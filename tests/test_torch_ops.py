@@ -19,6 +19,7 @@ from npswf_tpu.ops.peak_search import find_pulses as jax_find_pulses
 from npswf_tpu.ops.peak_search import tspectrum_search as jax_tspectrum_search
 from npswf_tpu.ops.spline import spline_eval_grad as jax_spline_eval_grad
 from npswf_tpu.utils.synthetic import make_events
+from npswf_tpu_torch.core.config import NPSConfig as TorchConfig
 from npswf_tpu_torch.ops.cluster_gate import cluster_gate
 from npswf_tpu_torch.ops.mf_kernel import matched_filter_kernel
 from npswf_tpu_torch.ops.peak_search import (find_pulses, search_operands,
@@ -29,6 +30,11 @@ from tests.test_fixtures import FIXTURE_PATH
 
 with open(FIXTURE_PATH) as _f:
     _FIXTURES = json.load(_f)["fixtures"]
+
+def _port(cfg):
+    """The port's own config with the JAX config's values."""
+    return TorchConfig.from_json(cfg.to_json())
+
 
 DTYPES = {"float64": (np.float64, torch.float64),
           "float32": (np.float32, torch.float32)}
@@ -57,7 +63,7 @@ def test_matched_filter_bitwise(cfg, cal, dt):
     XLA op and the Pallas kernel (interpret mode)."""
     npt, tt = DTYPES[dt]
     sig, mins, kern, mfint = (a.astype(npt) for a in _lanes(cfg, cal))
-    ours = matched_filter_kernel(cfg, torch.as_tensor(sig), torch.as_tensor(mins),
+    ours = matched_filter_kernel(_port(cfg), torch.as_tensor(sig), torch.as_tensor(mins),
                                  torch.as_tensor(kern), torch.as_tensor(mfint))
     assert ours.dtype == tt
     xla = np.asarray(jax_matched_filter(
@@ -77,7 +83,7 @@ def test_search_operands_match_pallas_kernel(cfg, cal):
     sig, mins, kern, mfint = _lanes(cfg, cal, occupancy=0.6, max_pulses=3,
                                     pileup_prob=0.5)
     mf = _mf32(cfg, sig, mins, kern, mfint)
-    ours = search_operands_kernel(cfg, torch.as_tensor(mf),
+    ours = search_operands_kernel(_port(cfg), torch.as_tensor(mf),
                                   torch.as_tensor(sig), -1)
     ref = search_operands_pallas(cfg, jnp.asarray(mf), jnp.asarray(sig), -1,
                                  interpret=True)
@@ -96,7 +102,8 @@ def test_tspectrum_search_matches_jax(cfg, cal):
     sig, mins, kern, mfint = _lanes(cfg, cal, occupancy=0.6, max_pulses=3,
                                     seed=11)
     mf = _mf32(cfg, sig, mins, kern, mfint)
-    px, py, valid = (o.numpy() for o in tspectrum_search(cfg, torch.as_tensor(mf)))
+    px, py, valid = (o.numpy() for o in tspectrum_search(_port(cfg),
+                                                         torch.as_tensor(mf)))
     jx, jy, jv = (np.asarray(o) for o in jax_tspectrum_search(cfg, jnp.asarray(mf)))
     assert jv.sum() > 20
     np.testing.assert_array_equal(valid, jv)
@@ -112,7 +119,7 @@ def test_tspectrum_search_decimal_fixture(fx, cfg):
                     spec_decon_iterations=fx["decon_iterations"],
                     spec_aver_window=fx["aver_window"])
     src = torch.as_tensor(np.asarray(fx["source"], np.float64))[None, :]
-    px, py, valid = tspectrum_search(c, src)
+    px, py, valid = tspectrum_search(_port(c), src)
     v = valid[0].numpy()
     assert list(px[0].numpy()[v]) == fx["expected_pos_x"], fx["note"]
     assert list(py[0].numpy()[v]) == fx["expected_pos_y"], fx["note"]
@@ -125,7 +132,7 @@ def test_find_pulses_matches_jax(cfg, cal):
                                     seed=21, pileup_prob=0.6)
     present = np.ones(sig.shape[0], bool)
     present[::7] = False
-    ours = find_pulses(cfg, *(torch.as_tensor(a) for a in
+    ours = find_pulses(_port(cfg), *(torch.as_tensor(a) for a in
                               (sig, mins, kern, mfint, present)))
     assert int(ours.npulse.sum()) > 20
     for c in (cfg, cfg.replace(interpret_pallas=True)):
@@ -143,15 +150,15 @@ def test_plain_search_flag_matches_wrapper(cfg, cal):
     """plain=True and the wrapper's CPU dispatch run the same code."""
     sig, mins, kern, mfint = _lanes(cfg, cal, n=32, seed=5)
     mf = torch.as_tensor(_mf32(cfg, sig, mins, kern, mfint))
-    a = search_operands(cfg, mf, torch.as_tensor(sig), -1)
-    b = search_operands_kernel(cfg, mf, torch.as_tensor(sig), -1)
+    a = search_operands(_port(cfg), mf, torch.as_tensor(sig), -1)
+    b = search_operands_kernel(_port(cfg), mf, torch.as_tensor(sig), -1)
     for x, y in zip(a, b):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 def test_cluster_gate_exact(small_cfg, small_cal):
     truth = make_events(small_cfg, small_cal, 3, occupancy=0.3, seed=5)
-    ours = cluster_gate(small_cfg, torch.as_tensor(truth.signal),
+    ours = cluster_gate(_port(small_cfg), torch.as_tensor(truth.signal),
                         torch.as_tensor(small_cal.timeref),
                         small_cal.timerefacc).numpy()
     ref = np.asarray(jax_cluster_gate(small_cfg, jnp.asarray(truth.signal),
@@ -164,14 +171,14 @@ def test_cluster_gate_exact(small_cfg, small_cal):
 def test_cluster_gate_single_device_only(small_cfg, small_cal):
     sig = torch.zeros((1, small_cfg.nblocks, small_cfg.ntime), dtype=torch.float64)
     with pytest.raises(NotImplementedError):
-        cluster_gate(small_cfg, sig, torch.as_tensor(small_cal.timeref),
+        cluster_gate(_port(small_cfg), sig, torch.as_tensor(small_cal.timeref),
                      small_cal.timerefacc, block_axis="block", block_shards=2)
 
 
 def test_spline_eval_grad_matches_jax(cfg, cal):
     b = np.arange(4) * 97
     t = np.linspace(-5.0, 115.0, 241)[None, :].repeat(4, 0)
-    ours = spline_eval_grad(cfg, torch.as_tensor(cal.spline_coeffs[b]),
+    ours = spline_eval_grad(_port(cfg), torch.as_tensor(cal.spline_coeffs[b]),
                             torch.as_tensor(cal.spline_x0[b]), torch.as_tensor(t))
     ref = jax_spline_eval_grad(cfg.replace(spline_mode="gather"),
                                jnp.asarray(cal.spline_coeffs[b]),

@@ -4,7 +4,9 @@ This file imports no jax, so its card tests also run on a machine without
 it (``python -m pytest --noconftest tests/test_torch_package.py -m cuda``).
 Tests marked ``cuda`` need a CUDA device and skip without one.
 """
+import ast
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -12,57 +14,93 @@ import numpy as np
 import pytest
 import torch
 
-from npswf_tpu.core import NPSConfig, synthetic_calibration
-from npswf_tpu.utils.synthetic import make_events
 from npswf_tpu_torch import kernels
+from npswf_tpu_torch.core.calibration import synthetic_calibration
+from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
 from npswf_tpu_torch.engine.pipeline import process_batch
+from npswf_tpu_torch.utils.synthetic import make_events
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-MODULES = [
-    "npswf_tpu_torch", "npswf_tpu_torch.kernels", "npswf_tpu_torch.core.params",
-    "npswf_tpu_torch.ops.matched_filter", "npswf_tpu_torch.ops.mf_kernel",
-    "npswf_tpu_torch.ops.peak_search", "npswf_tpu_torch.ops.search_kernel",
-    "npswf_tpu_torch.ops.cluster_gate", "npswf_tpu_torch.ops.spline",
-    "npswf_tpu_torch.models.waveform", "npswf_tpu_torch.fit.errors",
-    "npswf_tpu_torch.fit.linalg", "npswf_tpu_torch.fit.lm",
-    "npswf_tpu_torch.fit.lm_kernel", "npswf_tpu_torch.engine.diagnostics",
-    "npswf_tpu_torch.engine.pipeline",
-]
+PORT_SOURCES = sorted(pathlib.Path(REPO, "npswf_tpu_torch").rglob("*.py")) + [
+    pathlib.Path(REPO, "chip_smoke.py")]
+
+# the four routes of process_batch and the kernels each launches
+SLICE = dict(use_pallas_lm=False, pallas_search_select=True)
+ROUTES = {
+    "default": ({}, {kernels.MATCHED_FILTER, kernels.SEARCH_OPERANDS,
+                     kernels.LM_SOLVE}),
+    "slice": (SLICE, {kernels.MATCHED_FILTER, kernels.SEARCH_TOPK,
+                      kernels.FUSED_EVAL}),
+    "fused_neq": (dict(SLICE, use_fused_neq=True),
+                  {kernels.MATCHED_FILTER, kernels.SEARCH_TOPK,
+                   kernels.FUSED_EVAL, kernels.FUSED_NEQ}),
+    "fused_system": (dict(SLICE, use_fused_system=True),
+                     {kernels.MATCHED_FILTER, kernels.SEARCH_TOPK,
+                      kernels.FUSED_SYSTEM}),
+}
 
 
-def _small():
-    cfg = NPSConfig(ncol=5, nlin=6)
+def _small(**kw):
+    cfg = NPSConfig(ncol=5, nlin=6, **kw)
     cal = synthetic_calibration(cfg, seed=2)
     truth = make_events(cfg, cal, 2, occupancy=0.4, max_pulses=3,
                         pileup_prob=0.5, seed=7)
     return cfg, cal, truth
 
 
+def _foreign(name: str) -> bool:
+    """jax, jaxlib or a module of the JAX package (not of the port)."""
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "npswf_tpu")
+
+
 def test_port_imports_no_jax():
-    code = ("import importlib, sys\n"
-            f"for m in {MODULES!r}:\n"
-            "    importlib.import_module(m)\n"
-            "bad = sorted(k for k in sys.modules if k == 'jax' or "
-            "k.startswith('jax.') or k.startswith('jaxlib'))\n"
-            "assert not bad, bad\n")
+    """Importing every port module and chip_smoke loads no jax and no module
+    of the JAX package."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import npswf_tpu_torch, chip_smoke\n"
+            "for m in pkgutil.walk_packages(npswf_tpu_torch.__path__, "
+            "'npswf_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'npswf_tpu'))\n"
+            "assert not bad, bad\n"
+            "assert 'npswf_tpu_torch.fit.eval_kernel' in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
 
 
-def test_cpu_tensors_take_the_plain_path():
-    """No kernel is launched for CPU tensors; each plain version runs."""
-    cfg, cal, truth = _small()
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_SOURCES])
+def test_port_sources_import_no_jax(path):
+    """No import statement of the port or of chip_smoke, lazy ones inside
+    functions included, names jax or the JAX package."""
+    tree = ast.parse(path.read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert not [n for n in names if _foreign(n)], path
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_cpu_tensors_take_the_plain_path(route):
+    """No kernel is launched for CPU tensors; the plain version of each
+    kernel of the route runs, and no other."""
+    flags, names = ROUTES[route]
+    cfg, cal, truth = _small(**flags)
     calib = calib_to_torch(cal.device_arrays(cfg), "cpu", torch.float32)
     batch = batch_to_torch(truth.signal, truth.pres, np.zeros(2), "cpu",
                            torch.float32)
     kernels.reset_counts()
     out = process_batch(cfg, calib, batch)
     assert sum(kernels.launches.values()) == 0
-    for name in kernels.KERNEL_NAMES:
-        assert kernels.plain_calls[name] > 0, name
+    assert {n for n, c in kernels.plain_calls.items() if c > 0} == names
     assert int(out.n_fit_success) > 0
     assert out.wftime.dtype == torch.float32
 
@@ -85,17 +123,20 @@ def card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_cuda_tensors_launch_the_kernels(card, dtype):
-    """On the card every kernel launches, the plain versions are not
-    called, and the decisions match the plain path run on the card."""
-    cfg, cal, truth = _small()
+def test_cuda_tensors_launch_the_kernels(card, dtype, route):
+    """On the card the route's kernels launch and no other, the plain
+    versions are not called, and the decisions match the plain path run on
+    the card."""
+    flags, names = ROUTES[route]
+    cfg, cal, truth = _small(**flags)
     calib = calib_to_torch(cal.device_arrays(cfg), card, dtype)
     batch = batch_to_torch(truth.signal, truth.pres, np.zeros(2), card, dtype)
     kernels.reset_counts()
     out = process_batch(cfg, calib, batch)
     torch.cuda.synchronize()
-    assert all(kernels.launches[n] > 0 for n in kernels.KERNEL_NAMES)
+    assert {n for n, c in kernels.launches.items() if c > 0} == names
     assert sum(kernels.plain_calls.values()) == 0
     ref = process_batch(cfg, calib, batch, plain=True)
     assert torch.equal(out.wfnpulse, ref.wfnpulse)

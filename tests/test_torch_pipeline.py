@@ -19,6 +19,7 @@ import torch
 from npswf_tpu.engine.pipeline import EventBatch as JaxEventBatch
 from npswf_tpu.engine.pipeline import process_batch as jax_process_batch
 from npswf_tpu.utils.synthetic import make_events
+from npswf_tpu_torch.core.config import NPSConfig as TorchConfig
 from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
 from npswf_tpu_torch.engine.pipeline import process_batch
 
@@ -28,29 +29,47 @@ EXACT = ("wfnpulse", "pulse_valid", "gate", "fit_converged", "fit_n_iter",
          "n_fit_dropped", "n_high_pulse", "n_search_dropped")
 
 
-def _run_both(cfg, cal, dtype, seed=5):
+_JAX_REFS = {}
+
+
+def _run_both(cfg, cal, dtype, seed=5, **port_flags):
+    """The batch through the JAX package under ``cfg`` (its XLA route, one
+    compile per config and dtype) and through the port under ``cfg`` with
+    ``port_flags``."""
     npt = np.float64 if dtype == torch.float64 else np.float32
     truth = make_events(cfg, cal, E, occupancy=0.4, max_pulses=4,
                         pileup_prob=0.9, seed=seed)
     sig = truth.signal.astype(npt)
     corr = np.random.default_rng(11).uniform(-2, 2, E).astype(npt)
     arrays = cal.device_arrays(cfg.replace(compute_dtype=np.dtype(npt).name))
-    jcal = {k: jnp.asarray(v) for k, v in arrays.items()}
-    jb = JaxEventBatch(signal=jnp.asarray(sig),
-                       pres=jnp.asarray(truth.pres.astype(bool)),
-                       corr_time_HMS=jnp.asarray(corr), evt=jnp.arange(E),
-                       runnum=jnp.zeros(E, jnp.int32))
-    ref = jax.jit(lambda b: jax_process_batch(cfg, jcal, b))(jb)
-    ours = process_batch(cfg, calib_to_torch(arrays, "cpu", dtype),
+    key = (cfg, dtype, seed)
+    if key not in _JAX_REFS:
+        jcal = {k: jnp.asarray(v) for k, v in arrays.items()}
+        jb = JaxEventBatch(signal=jnp.asarray(sig),
+                           pres=jnp.asarray(truth.pres.astype(bool)),
+                           corr_time_HMS=jnp.asarray(corr), evt=jnp.arange(E),
+                           runnum=jnp.zeros(E, jnp.int32))
+        ref = jax.jit(lambda b: jax_process_batch(cfg, jcal, b))(jb)
+        _JAX_REFS[key] = {f: np.asarray(getattr(ref, f)) for f in ref._fields}
+    ours = process_batch(TorchConfig.from_json(cfg.to_json()).replace(**port_flags),
+                         calib_to_torch(arrays, "cpu", dtype),
                          batch_to_torch(sig, truth.pres, corr, "cpu", dtype))
-    ref = {f: np.asarray(getattr(ref, f)) for f in ref._fields}
     ours = {f: getattr(ours, f).numpy() for f in ours._fields}
-    return ours, ref
+    return ours, _JAX_REFS[key]
 
 
 @pytest.fixture(scope="module")
 def cfg3(small_cfg):
     return small_cfg.replace(fit_small_pulses=1, fit_mid_pulses=2)
+
+
+def _assert_fp64_match(ours, ref):
+    for f in ref:
+        if f in EXACT:
+            np.testing.assert_array_equal(ours[f], ref[f], err_msg=f)
+        else:
+            np.testing.assert_allclose(ours[f], ref[f], rtol=1e-9, atol=1e-9,
+                                       err_msg=f)
 
 
 def test_process_batch_matches_jax_fp64(cfg3, small_cal):
@@ -59,12 +78,23 @@ def test_process_batch_matches_jax_fp64(cfg3, small_cal):
     n = ours["wfnpulse"][ours["gate"]]
     assert (n == 1).any() and (n == 2).any() and (n >= 3).any()   # 3 buckets
     assert ours["fit_converged"].sum() >= 30
-    for f in ref:
-        if f in EXACT:
-            np.testing.assert_array_equal(ours[f], ref[f], err_msg=f)
-        else:
-            np.testing.assert_allclose(ours[f], ref[f], rtol=1e-9, atol=1e-9,
-                                       err_msg=f)
+    _assert_fp64_match(ours, ref)
+
+
+SLICE = dict(use_pallas_lm=False, pallas_search_select=True)
+
+
+@pytest.mark.parametrize("flags", [SLICE, dict(SLICE, use_fused_neq=True),
+                                   dict(SLICE, use_fused_system=True)],
+                         ids=["slice", "fused_neq", "fused_system"])
+def test_process_batch_routes_match_jax_fp64(cfg3, small_cal, flags):
+    """The port's generic LM loop (K5 + batched normal equations, K5 + K7,
+    K6) and its in-kernel top-P search (K4), all as plain versions here,
+    against the JAX package's XLA route: decisions and counters exact,
+    floats to 1e-9 relative."""
+    ours, ref = _run_both(cfg3, small_cal, torch.float64, **flags)
+    assert ours["fit_converged"].sum() >= 30
+    _assert_fp64_match(ours, ref)
 
 
 def test_process_batch_matches_jax_fp32(cfg3, small_cal):
@@ -104,12 +134,7 @@ def test_process_batch_capacities_match_jax(small_cfg, small_cal):
     cfg = small_cfg.replace(search_capacity=100, fit_capacity=24)
     ours, ref = _run_both(cfg, small_cal, torch.float64)
     assert ours["n_search_dropped"] > 0 and ours["n_fit_dropped"] > 0
-    for f in ref:
-        if f in EXACT:
-            np.testing.assert_array_equal(ours[f], ref[f], err_msg=f)
-        else:
-            np.testing.assert_allclose(ours[f], ref[f], rtol=1e-9, atol=1e-9,
-                                       err_msg=f)
+    _assert_fp64_match(ours, ref)
 
 
 def test_process_batch_single_device_only(small_cfg, small_cal):
@@ -121,4 +146,5 @@ def test_process_batch_single_device_only(small_cfg, small_cal):
     calib = calib_to_torch(arrays, "cpu", torch.float64)
     for kw in ({"block_axis": "block"}, {"reduce_axes": ("data",)}):
         with pytest.raises(NotImplementedError):
-            process_batch(small_cfg, calib, batch, **kw)
+            process_batch(TorchConfig.from_json(small_cfg.to_json()), calib,
+                          batch, **kw)
