@@ -203,6 +203,49 @@ def lm_inputs(torch, cfg, cal, n, max_pulses, P, seed, dtype, dev,
             hi, p_seed, pm, inp.active, s1_cap, cfg.lm_lambda_init, s1_budget)
 
 
+def lm_retry_inputs(torch, cfg, cal, n, max_pulses, P, seed, dtype, dev):
+    """A retry-shaped LM call: n lanes restarted from their seeds at the
+    stage-2 cap with lambda0 x 10 and the stage-2 budgets (60, or 120 for
+    lanes of more than lm_wide_pulses pulses); lane i is inactive when
+    i % 5 == 2 and has budget 0 when i % 7 == 3."""
+    args = list(lm_inputs(torch, cfg, cal, n, max_pulses, P, seed, dtype, dev))
+    idx = torch.arange(n, device=dev)
+    wide = args[8][:, 2::2].sum(dim=1) > cfg.lm_wide_pulses
+    budget = torch.where(wide, cfg.lm_stage2_wide, cfg.lm_max_iter_stage2)
+    args[9] = idx % 5 != 2
+    args[10] = max(cfg.lm_max_iter_stage2, cfg.lm_stage2_wide)
+    args[11] = cfg.lm_lambda_init * 10.0
+    args[12] = torch.where(idx % 7 == 3, 0, budget).to(torch.int32)
+    return tuple(args)
+
+
+def lm_equal(torch, k, p):
+    """Lanes on which two LM results agree in u, chi2, conv, n_iter and
+    lambda, each value equal (a NaN matching a NaN)."""
+    def same(a, b):
+        eq = a == b
+        if a.is_floating_point():
+            eq = eq | (torch.isnan(a) & torch.isnan(b))
+        return eq if eq.dim() == 1 else eq.all(dim=1)
+    lanes = same(k[0], p[0])
+    for i in (1, 2, 3, 5):
+        lanes = lanes & same(k[i], p[i])
+    return int(lanes.sum())
+
+
+def lm_bound(torch, cfg, args, out):
+    """K3's bound on one call: its tensors read and written once, and the
+    system evaluations and damped solves that its lanes' n_iter need."""
+    M = args[4].shape[1]
+    P = (M - 1) // 2
+    K = args[2].shape[1]
+    it = out[3][args[9]].to(torch.float64)
+    nops = float(((it + 1) * ops_system(K, P)
+                  + it * (M ** 3 + 4 * M * M + 10 * M)).sum())
+    ins = [a for a in args if isinstance(a, torch.Tensor)]
+    return bound(nbytes(*ins, *out), nops)
+
+
 # ---------------------------------------------------------------------
 # phases: each kernel against its plain version
 # ---------------------------------------------------------------------
@@ -323,11 +366,15 @@ def check_lm(torch, cfg, cal, dev, records):
                           / chi2_p.abs().clamp(min=1.0))[same].max())
             n_conv = int(conv_p.sum())
             n_bit = int((u_k == u_p).all(dim=1).sum())
+            n_eq = lm_equal(torch, k, p)
             say("K3", f"P={P} {dt}: {n} lanes, {n_conv} converged; conv "
                       f"flips {conv_flip}, n_iter flips {traj_flip}; u "
-                      f"bit-equal on {n_bit} lanes; on same-trajectory lanes "
+                      f"bit-equal on {n_bit} lanes; u, chi2, conv, n_iter "
+                      f"and lambda equal on {n_eq}; on same-trajectory lanes "
                       f"max|du| {du:.3e}, max rel dchi2 {dchi:.3e}")
             check(n_conv > n // 2, "too few converged lanes")
+            check(n_eq == n, f"K3 not bit-equal to its plain version at "
+                             f"P={P} {dt}")
             if dt == torch.float64:
                 check(conv_flip == 0 and traj_flip == 0,
                       "fp64 conv/n_iter differ")
@@ -345,19 +392,74 @@ def check_lm(torch, cfg, cal, dev, records):
                 check(conv_flip <= max(4, n_conv // 50), "fp32 conv flips")
                 check(du <= 1e-3, "fp32 same-trajectory u differs")
                 if P == 2:
-                    M = 1 + 2 * P
-                    K = args[2].shape[1]
-                    it = it_k[args[9]].to(torch.float64)
-                    nops = float(((it + 1) * ops_system(K, P)
-                                  + it * (M ** 3 + 4 * M * M + 10 * M)).sum())
-                    ins = [a for a in args if isinstance(a, torch.Tensor)]
                     records["lm_solve"]["max_abs_err"] = du
                     records["lm_solve"].update(
                         ms=cuda_ms(torch, lambda: lm_solve_kernel(cfg, *args), 3),
                         plain_ms=cuda_ms(torch, lambda: lm_solve_plain(cfg, *args), 1),
-                        library_ms=None,
-                        **bound(nbytes(*ins, *k), nops))
+                        library_ms=None, **lm_bound(torch, cfg, args, k))
             del args, k, p
+
+
+def check_lm_retry(torch, cfg, cal, dev):
+    """K3 on retry-shaped calls of 1, 37 and 301 lanes (a partial last
+    block, inactive lanes, budgets of 0, 60 and 120): u, chi2, conv, n_iter
+    and lambda equal to the plain version on every lane."""
+    from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel, lm_solve_plain
+    for P, max_pulses in ((2, 2), (12, 6)):
+        for dt in (torch.float64, torch.float32):
+            for n in (1, 37, 301):
+                args = lm_retry_inputs(torch, cfg, cal, n, max_pulses, P,
+                                       71 + n + P, dt, dev)
+                k = lm_solve_kernel(cfg, *args)
+                p = lm_solve_plain(cfg, *args)
+                torch.cuda.synchronize()
+                n_eq = lm_equal(torch, k, p)
+                its = sorted({int(i) for i in p[3]})
+                say("K3", f"retry P={P} {dt} {n} lanes ({int(args[9].sum())} "
+                          f"active, n_iter {its[0]}..{its[-1]}, "
+                          f"{len(its)} distinct): u, chi2, conv, n_iter and "
+                          f"lambda equal on {n_eq}")
+                check(n_eq == n, f"K3 retry not bit-equal at P={P} {dt} "
+                                 f"n={n}")
+
+
+def time_lm_launches(torch, cfg, calib, batch, records, card):
+    """K3 per launch on the default route: the calls of one process_batch
+    are captured with their arguments, then each is timed alone."""
+    from npswf_tpu_torch.engine.pipeline import process_batch
+    from npswf_tpu_torch.fit import lm_kernel
+    kernel = lm_kernel.lm_solve_kernel
+    calls = []
+
+    def capture(cfg_, *args):
+        calls.append((cfg_, args))
+        return kernel(cfg_, *args)
+    lm_kernel.lm_solve_kernel = capture
+    try:
+        process_batch(cfg, calib, batch)
+        torch.cuda.synchronize()
+    finally:
+        lm_kernel.lm_solve_kernel = kernel
+    check(len(calls) == records["lm_solve"]["launches"],
+          f"{len(calls)} K3 calls captured, {records['lm_solve']['launches']} "
+          "counted on the default route")
+    names = ["stage 1", "stage 2"] + [f"stage 3 pull-back {m}"
+                                      for m in cfg.lm_stage3_pullbacks]
+    per = []
+    for i, (c, args) in enumerate(calls):
+        out = kernel(c, *args)
+        ms = cuda_ms(torch, lambda: kernel(c, *args), 5)
+        rec = {"call": names[i] if i < len(names) else f"call {i}",
+               "lanes": int(args[4].shape[0]), "P": (args[4].shape[1] - 1) // 2,
+               "budget_cap": int(args[10]), "ms": ms,
+               **lm_bound(torch, c, args, out)}
+        per.append(rec)
+        say("K3", f"default route, {rec['call']}: {rec['lanes']} lanes at P="
+                  f"{rec['P']}, budget cap {rec['budget_cap']}: {ms:.4f} ms, "
+                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) ({card})")
+    records["lm_solve"]["route_launches"] = per
+    say("K3", f"default route: {sum(r['ms'] for r in per):.4f} ms over "
+              f"{len(per)} launches ({card})")
 
 
 def eval_inputs(torch, cfg, cal, n, P, seed, dtype, dev):
@@ -663,6 +765,7 @@ def run(torch) -> int:
     check_search_topk(torch, cfg, mf32, sig64, records)
     del lanes, mf32
     check_lm(torch, cfg, cal, dev, records)
+    check_lm_retry(torch, cfg, cal, dev)
     check_fused_eval(torch, cfg, cal, dev, records)
     check_systems(torch, cfg, cal, dev, records)
     for route, flags in ROUTE_FLAGS.items():
@@ -681,6 +784,7 @@ def run(torch) -> int:
             default_out = out
     for name, route in LAUNCHES_FROM.items():
         records[name]["launches"] = route_launches[route].get(name, 0)
+    time_lm_launches(torch, cfg, calib, batch, records, card)
 
     # ---- 6. records -----------------------------------------------------
     for r in records.values():

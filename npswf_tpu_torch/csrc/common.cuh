@@ -1,8 +1,10 @@
 // Shared helpers for the port's hand-written kernels.
 //
-// Every kernel here is one thread per lane (one event x block waveform) and
-// is compiled with -fmad=false: each multiply and add rounds on its own, as
-// in the plain PyTorch versions the kernels are held against.
+// A lane is one event x block waveform. K1, K2 and K4-K7 run one thread
+// per lane (K5 one per lane and fit bin); K3 runs a team of threads, one
+// warp, per lane (lm.cu). Every kernel is compiled with -fmad=false: each
+// multiply and add rounds on its own, as in the plain PyTorch versions the
+// kernels are held against.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -11,7 +13,7 @@
 
 namespace npswf {
 
-constexpr int kBlock = 128;  // threads per block for every lane kernel
+constexpr int kBlock = 128;  // threads per block of the thread-per-lane kernels
 
 // dtype codes passed from the ctypes wrappers
 constexpr int kFloat32 = 0;

@@ -19,11 +19,12 @@
 // K6 fused_system replaces npswf_tpu/fit/pallas_eval.py::_system_kernel
 // (wrapper fused_system): transform, model, Jacobian columns and the packed
 // normal equations A (upper triangle), g and chi2 in one call, one thread
-// per lane. It is SplineLane::system (spline_system.cuh), the evaluation K3
-// runs inside its loop, so the two round alike.
+// per lane. It is SplineLane::system (spline_system.cuh), whose per-bin
+// function and bin-order sums K3 runs inside its loop, so the two round
+// alike.
 // What bounds it: device memory, 206 MB at P = 2 (the planes, y and w, the
 // [N, M] parameter rows); at P = 12 the M(M+1)/2 = 325 accumulators spill
-// to local memory, as in K3. Design: y and w arrive lanes-minor ([K, N]) so
+// to local memory. Design: y and w arrive lanes-minor ([K, N]) so
 // a warp's loads of one bin coalesce, and the outputs are written
 // lanes-minor ([MT + M + 1, N]) for the same reason.
 //

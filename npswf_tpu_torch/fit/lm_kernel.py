@@ -72,7 +72,8 @@ def lm_solve_kernel(cfg: NPSConfig, coeffs_pad: torch.Tensor,
     budget = torch.clamp(iter_budget.to(device=dev, dtype=torch.int32),
                          max=max_iter).contiguous()
     lam0_t = (torch.zeros((N,), dtype=dt, device=dev) + lam0).contiguous()
-    # lanes-minor fit data: a warp's loads of one fit bin coalesce
+    # lanes-minor fit data ([K, N], as K6 reads it); each lane's team stages
+    # its own bins into shared memory once
     yt = y.t().contiguous()
     wt = w.t().contiguous()
     pmask = param_mask.to(torch.uint8).contiguous()

@@ -147,6 +147,26 @@ def test_cuda_tensors_launch_the_kernels(card, dtype, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 257])
+@pytest.mark.parametrize("P,max_pulses", [(1, 1), (2, 2), (12, 6)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lm_kernel_bit_equal_to_plain(card, dtype, P, max_pulses, n):
+    """K3 against its plain version on retry-shaped calls (stage-2 cap,
+    mixed budgets with some at 0, some inactive lanes, a partial last
+    block): u, chi2, conv, n_iter and lambda equal on every lane."""
+    from chip_smoke import lm_equal, lm_retry_inputs
+    from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel, lm_solve_plain
+    cfg = NPSConfig(compute_dtype="float32")
+    cal = synthetic_calibration(cfg, seed=1)
+    args = lm_retry_inputs(torch, cfg, cal, n, max_pulses, P, 61 + n + P,
+                           dtype, card)
+    k = lm_solve_kernel(cfg, *args)
+    p = lm_solve_plain(cfg, *args)
+    torch.cuda.synchronize()
+    assert lm_equal(torch, k, p) == n
+
+
+@pytest.mark.cuda
 def test_search_kernel_refuses_a_wide_frame(card):
     """sigma = 3 needs Gold taps beyond the kernel frame's 16-row margin."""
     from npswf_tpu_torch.ops.search_kernel import search_operands_kernel
