@@ -427,23 +427,14 @@ lm_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
 }
 
 // Launch one block a lane with the team's shared memory; above 48 KB a
-// block the kernel's limit is raised once, and a launch the card cannot
-// give its shared memory fails (no fallback).
+// block the kernel's limit is raised (allow_smem), and a launch the card
+// cannot give its shared memory fails (no fallback).
 template <typename T, int P>
 static cudaError_t launch(const void* const* in, void* const* out,
                           const LMParams& prm, cudaStream_t st) {
   const size_t smem = TeamMem<T, P>::bytes(prm.nk);
-  static size_t smem_set = 48 * 1024;
-  if (smem > smem_set) {
-    int dev = 0, optin = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (smem > (size_t)optin) return cudaErrorInvalidConfiguration;
-    const cudaError_t e = cudaFuncSetAttribute(
-        lm_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    smem_set = smem;
-  }
+  const cudaError_t e = allow_smem(lm_kernel<T, P>, smem);
+  if (e != cudaSuccess) return e;
   lm_kernel<T, P><<<prm.n, kTeam, smem, st>>>(
       (const T*)in[0], (const T*)in[1], (const T*)in[2], (const T*)in[3],
       (const T*)in[4], (const T*)in[5], (const T*)in[6], (const T*)in[7],

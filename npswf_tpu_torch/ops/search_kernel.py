@@ -8,6 +8,7 @@ CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from npswf_tpu_torch.core.config import NPSConfig
@@ -21,16 +22,16 @@ MARGIN = 16
 
 def _launch(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
             aux_offset: int, select_p: int, name: str):
-    """One search kernel launch; returns its four outputs as [N, rows]
-    views of the lanes-minor [rows, N] tensors it writes (rows = T, or P in
-    select mode)."""
+    """One search kernel launch; returns its four outputs, each [N, rows]
+    (rows = T, or P in select mode)."""
     N, ssize = src.shape
     dev, dt = src.device, src.dtype
+    kernels.require(src, "src", (N, ssize), dt, dev)
     kernels.require(aux, "aux", (N, ssize), dt, dev)
     shift, size_ext, resp, area, lh_gold, posit, bvec = \
         search_geometry(cfg, ssize)
     # The frame margins bound the Gold correlation reach and the Markov
-    # window: wider settings would read another lane's rows, so refuse them.
+    # window: wider settings would read past a lane's frame, so refuse them.
     if lh_gold - 1 > MARGIN or cfg.spec_aver_window > MARGIN:
         raise ValueError(
             f"search kernel supports lh_gold-1 <= {MARGIN} and "
@@ -40,26 +41,23 @@ def _launch(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
     if ssize < 1 or cfg.spec_aver_window < 1:
         raise ValueError("search kernel needs T >= 1 and spec_aver_window >= 1")
     rows = select_p if select_p else ssize
-    outs = [torch.empty((rows, N), dtype=dt, device=dev) for _ in range(4)]
+    outs = [torch.empty((N, rows), dtype=dt, device=dev) for _ in range(4)]
     if N == 0:
-        return tuple(o.t() for o in outs)
-    lib = kernels.library()
-    src_t = src.t().contiguous()
-    aux_t = aux.t().contiguous()
-    resp_t = torch.as_tensor(resp, dtype=dt, device=dev)
-    bvec_t = torch.as_tensor(bvec, dtype=dt, device=dev)
-    scratch = torch.empty((lib.npswf_search_scratch_rows(size_ext), N),
-                          dtype=dt, device=dev)
+        return tuple(outs)
+    # resp and bvec travel by value in the launch's parameters: no copy to
+    # the card, no host sync
+    resp_h = np.ascontiguousarray(resp, dtype=np.float64)
+    bvec_h = np.ascontiguousarray(bvec, dtype=np.float64)
     kfit, m0, m1, det = extension_fit(cfg)
-    code = lib.npswf_search(
-        kernels.dtype_code(dt), src_t.data_ptr(), aux_t.data_ptr(),
-        resp_t.data_ptr(), bvec_t.data_ptr(), scratch.data_ptr(),
+    code = kernels.library().npswf_search(
+        kernels.dtype_code(dt), src.data_ptr(), aux.data_ptr(),
         *(o.data_ptr() for o in outs), N, ssize, shift, kfit, lh_gold, posit,
         cfg.spec_aver_window, cfg.spec_decon_iterations, aux_offset, select_p,
-        m0, m1, det, float(area), float(cfg.specthres), kernels.stream_ptr(dev))
+        m0, m1, det, float(area), float(cfg.specthres), resp_h.ctypes.data,
+        bvec_h.ctypes.data, kernels.stream_ptr(dev))
     kernels.check(code, name)
     kernels.launches[name] += 1
-    return tuple(o.t() for o in outs)
+    return tuple(outs)
 
 
 def search_operands_kernel(cfg: NPSConfig, src: torch.Tensor,
@@ -74,7 +72,7 @@ def search_operands_kernel(cfg: NPSConfig, src: torch.Tensor,
 def search_topk_kernel(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
                        aux_offset: int, P: int):
     """src/aux [N, T] -> (negkey, cent, pos_y, aux_sel), each [N, P] in
-    slot order; the same contract as ``search_topk``."""
+    slot order; the same contract as ``search_topk``, on every slot."""
     if not src.is_cuda:
         return search_topk(cfg, src, aux, aux_offset, P)
     if P < 1:

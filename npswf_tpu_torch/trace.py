@@ -9,9 +9,12 @@ up, is timed untraced (host clock around synchronized batches, median of
 3), then traced with ``torch.profiler`` over ``--batches`` batches. Per
 route it prints the host ms a batch with and without the profiler, the
 device busy ms a batch (the sum of the kernels' device times), the
-device's idle share of the traced span, kernel launches a batch and the
-kernels that take the most device time, beside the card's name and power
-limit; the last line is the whole summary as JSON. It needs a CUDA device.
+device's idle share of the traced span, kernel launches a batch, the host
+syncs and host-device copies a batch (CUDA runtime calls, the one
+``torch.cuda.synchronize`` that ends each batch included), the kernels
+that take the most device time and the port's own kernels, beside the
+card's name and power limit; the last line is the whole summary as JSON.
+It needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,6 +33,10 @@ from npswf_tpu_torch.engine.pipeline import process_batch
 from npswf_tpu_torch.utils.synthetic import make_events
 
 SLICE = dict(use_pallas_lm=False, pallas_search_select=True)
+# CUDA runtime calls that make the host wait for the card, and copies
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+COPY_CALLS = ("cudaMemcpy", "cudaMemcpyAsync")
 ROUTES = {"default": {}, "slice": SLICE,
           "fused_neq": dict(SLICE, use_fused_neq=True),
           "fused_system": dict(SLICE, use_fused_system=True)}
@@ -62,8 +69,11 @@ def trace_route(cfg, calib, batch, n_batches: int, top: int = 8):
             one()
         span_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
+    syncs = copies = 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            syncs += evt.count if evt.key in SYNC_CALLS else 0
+            copies += evt.count if evt.key in COPY_CALLS else 0
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
@@ -78,9 +88,14 @@ def trace_route(cfg, calib, batch, n_batches: int, top: int = 8):
         "device_busy_ms": busy,
         "idle_share": 1.0 - busy * n_batches / span_ms,
         "launches": sum(k[2] for k in kernels),
+        "host_syncs": syncs / n_batches,
+        "copies": copies / n_batches,
         "blocks_per_s": E * B / (float(np.median(host)) / 1e3),
         "top": [{"kernel": k[0][:80], "ms": k[1], "launches": k[2]}
                 for k in kernels[:top]],
+        # the port's own kernels, whatever their rank
+        "port": [{"kernel": k[0][:80], "ms": k[1], "launches": k[2]}
+                 for k in kernels if "npswf::" in k[0]],
     }
 
 
@@ -111,9 +126,13 @@ def main(argv=None) -> int:
               f"({r['blocks_per_s']:.0f} blocks/s), {r['traced_host_ms']:.3f} "
               f"traced; device busy {r['device_busy_ms']:.3f} ms/batch, idle "
               f"{r['idle_share']:.1%} of the traced span; "
-              f"{r['launches']:.0f} launches/batch ({card})", flush=True)
+              f"{r['launches']:.0f} launches/batch, {r['host_syncs']:.0f} host "
+              f"syncs/batch, {r['copies']:.0f} copies/batch ({card})",
+              flush=True)
         for k in r["top"]:
             print(f"    {k['ms']:9.3f} ms {k['launches']:7.1f}x  {k['kernel']}")
+        for k in r["port"]:
+            print(f"    port: {k['ms']:9.3f} ms {k['launches']:7.1f}x  {k['kernel']}")
     print(json.dumps(summary))
     return 0
 

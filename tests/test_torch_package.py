@@ -166,6 +166,93 @@ def test_lm_kernel_bit_equal_to_plain(card, dtype, P, max_pulses, n):
     assert lm_equal(torch, k, p) == n
 
 
+def test_fp32_division_through_fp64_reciprocal():
+    """K1 divides fp32 a by fp32 b as fp32(a * (1.0 / fp64(b)))
+    (csrc/matched_filter.cu, fp32_div): bit-equal to IEEE fp32 a / b
+    wherever that fp64 quotient is zero or at least 2^-126 in size, on
+    random bit patterns (zeros, denormals, infinities and NaNs among them)
+    and on integer-like values of mixed scale."""
+    rng = np.random.default_rng(0)
+    n = 1 << 20
+
+    def bits():
+        return rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(
+            np.uint32).view(np.float32)
+
+    def scaled():
+        return (rng.integers(-(1 << 24), 1 << 24, n)
+                * 2.0 ** rng.integers(-40, 40, n)).astype(np.float32)
+    for a, b in ((bits(), bits()), (scaled(), scaled()), (scaled(), bits()),
+                 (bits(), scaled())):
+        with np.errstate(all="ignore"):
+            ref = a / b
+            q = a.astype(np.float64) * (1.0 / b.astype(np.float64))
+            got = q.astype(np.float32)
+        tiny = (np.abs(q) < 2.0 ** -126) & (q != 0)
+        same = (got.view(np.uint32) == ref.view(np.uint32)) | (
+            np.isnan(got) & np.isnan(ref))
+        assert (~tiny).sum() > n // 2
+        assert same[~tiny].all()
+
+
+def _mf_lanes(n, dev):
+    """The matched filter's inputs for the first n lanes of bench-like
+    events (fp64), and the calibration's config."""
+    from chip_smoke import mf_lanes
+    cfg = NPSConfig(compute_dtype="float32")
+    cal = synthetic_calibration(cfg, seed=1)
+    truth = make_events(cfg, cal, -(-n // cfg.nblocks), occupancy=1.0,
+                        max_pulses=2, pileup_prob=0.25, seed=7)
+    return cfg, [a[:n].contiguous() for a in mf_lanes(torch, cal, truth.signal, dev)]
+
+
+# 70 and 257 lanes are not a multiple of any kernel's tile (8, 16 lanes)
+LANE_COUNTS = [1, 33, 70, 257]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", LANE_COUNTS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_matched_filter_kernel_bit_equal_to_plain(card, dtype, n):
+    """K1 against its plain version: every value equal."""
+    from chip_smoke import n_unequal
+    from npswf_tpu_torch.ops.matched_filter import matched_filter
+    from npswf_tpu_torch.ops.mf_kernel import matched_filter_kernel
+    cfg, lanes = _mf_lanes(n, card)
+    args = [a.to(dtype) for a in lanes]
+    k = matched_filter_kernel(cfg, *args)
+    p = matched_filter(cfg, *args)
+    torch.cuda.synchronize()
+    assert n_unequal(torch, k, p) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", LANE_COUNTS)
+@pytest.mark.parametrize("mode", ["operands", "select1", "select12"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_search_kernel_bit_equal_to_plain(card, dtype, mode, n):
+    """K2 (operands) and K4 (select, P = 1 and 12) against their plain
+    versions: all four outputs equal on every bin or slot, a NaN matching a
+    NaN."""
+    from chip_smoke import n_unequal
+    from npswf_tpu_torch.ops.matched_filter import matched_filter
+    from npswf_tpu_torch.ops.peak_search import search_operands, search_topk
+    from npswf_tpu_torch.ops.search_kernel import (search_operands_kernel,
+                                                   search_topk_kernel)
+    cfg, lanes = _mf_lanes(n, card)
+    src = matched_filter(cfg, *lanes).to(torch.float32).to(dtype)
+    aux = lanes[0].to(dtype)
+    if mode == "operands":
+        p = search_operands(cfg, src, aux, -1)
+        k = search_operands_kernel(cfg, src, aux, -1)
+    else:
+        P = int(mode[len("select"):])
+        p = search_topk(cfg, src, aux, -1, P)
+        k = search_topk_kernel(cfg, src, aux, -1, P)
+    torch.cuda.synchronize()
+    assert [n_unequal(torch, x, y) for x, y in zip(k, p)] == [0] * 4
+
+
 @pytest.mark.cuda
 def test_search_kernel_refuses_a_wide_frame(card):
     """sigma = 3 needs Gold taps beyond the kernel frame's 16-row margin."""
