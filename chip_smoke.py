@@ -10,18 +10,29 @@ full 1080-block calorimeter along four routes: the default path (K1, K2,
 K3), the generic LM loop with the in-kernel top-P search (K1, K4, K5) and
 its two system variants (K5 + K7, and K6). Each route's launch counts are
 read from its own run, its result is checked, and it is timed against the
-plain path. It prints one JSON line of kernel records (times, launches,
-bounds), the card's name and power limit, and a last JSON line
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero. It
-imports no jax. Without a CUDA device, or outside the repository, it exits
-non-zero and prints no result.
+plain path. Then the ``[segment]`` phase drives the production entry
+point, ``runtime.executor.run_segment``, from raw segments built in memory
+to WF files: 4,096 events read out sparsely (occupancy 0.03: the slab
+packet, the present-lane upload), once plain and once in chains of 4, and
+512 dense events (the dense packet), with the launch counts of each run
+held to those of its batches run alone (plus the batches its dense
+fallback reran), the file's checks, the packet path against the dense path
+on the first two batches, the stage medians; then the CLI (synth, run, validate) in a
+subprocess. It prints one JSON line of kernel records (times, launches,
+bounds), one of the segment runs, the card's name and power limit, and a
+last JSON line ``{"ok": true, "device": {...}}``. Any failed phase exits
+non-zero. It imports no jax. Without a CUDA device, or outside the
+repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
 import json
+import logging
+import multiprocessing
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -31,6 +42,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # bench.py's dense batch: E events x 1080 blocks x 110 samples, fp32
 E_BENCH = 64
 FAIL_RATE_MAX = 0.02
+# the [segment] phase: (events, occupancy, pileup, seed, sparse readout);
+# segments are built in chunks of SEG_CHUNK events and run in batches of
+# SEG_BATCH, SEG_CHAIN batches a call for the chained run
+SEGMENTS = {"sparse": (4096, 0.03, 0.3, 101, True),
+            "dense": (512, 1.0, 0.25, 7, False)}
+SEG_CHUNK = 64
+SEG_BATCH = 64
+SEG_CHAIN = 4
+CLI_EVENTS = 32
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 outside the
 # tensor cores in operations/s
 MEM_RATE = 3.35e12
@@ -679,7 +699,7 @@ def run_route(torch, cfg, calib, truth, batch, route, card, default_out):
     for name, ms in (("kernel path", ms_k), ("plain path", ms_p)):
         say("times", f"{route} {name}: {ms:.3f} ms per {E}-event batch, "
                      f"{E * B / (ms / 1e3):.0f} blocks/s ({card})")
-    return out, launches
+    return out, launches, ms_k
 
 
 def small_reference(torch, dev, flags):
@@ -706,6 +726,340 @@ def small_reference(torch, dev, flags):
     check(bool(torch.allclose(k.wftime, p.wftime, rtol=1e-9, atol=1e-9)),
           f"small fp64 wftime differs under {flags}")
     return int(k.fit_converged.sum())
+
+
+# ---------------------------------------------------------------------
+# the segment executor: raw segment -> WF file
+# ---------------------------------------------------------------------
+def segment_chunk(args):
+    """Streams and hits of one chunk of synthetic events (a worker process
+    builds it: it needs numpy and the port's host layer, no torch)."""
+    lo, n, occupancy, pileup, seed, sparse = args
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.tools.cli import synth_records
+    from npswf_tpu_torch.utils.synthetic import make_events
+    cfg = NPSConfig()
+    cal = synthetic_calibration(cfg, seed=1)
+    truth = make_events(cfg, cal, n, occupancy=occupancy, max_pulses=2,
+                        pileup_prob=pileup, seed=seed + lo // SEG_CHUNK)
+    rng = np.random.default_rng(seed + 1 + lo // SEG_CHUNK)
+    return synth_records(cfg, truth, rng,
+                         pres=truth.npulse > 0 if sparse else None)
+
+
+def build_segment_in_memory(name):
+    """A raw segment of SEGMENTS[name], SEG_CHUNK events a chunk, the
+    chunks built in parallel worker processes (spawned, stopped on exit)
+    and never written to disk. The calibration is synthetic_calibration(
+    NPSConfig(), seed=1)."""
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.io.rawstream import build_segment
+    n_events, occupancy, pileup, seed, sparse = SEGMENTS[name]
+    jobs = [(lo, min(SEG_CHUNK, n_events - lo), occupancy, pileup, seed, sparse)
+            for lo in range(0, n_events, SEG_CHUNK)]
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(min(len(jobs), os.cpu_count() or 1)) as pool:
+        parts = pool.map(segment_chunk, jobs)
+    streams = [st for s_, _ in parts for st in s_]
+    hits = [h for _, h_ in parts for h in h_]
+    return build_segment(NPSConfig(), streams, hits,
+                         evt=np.arange(1, n_events + 1, dtype=np.float64),
+                         runnum=np.full(n_events, 3000.0))
+
+
+def replay_batches(torch, cfg, cal, seg, dev, tmp):
+    """Every batch of the segment alone through process_batch on the card,
+    the launch counts read around each call: what run_segment must launch
+    batch for batch. For the first two batches also the packet path's part
+    (make_pipeline_packed, the batch-0 sizing) against the dense path's
+    (that process_batch's host copy through WFWriter.add_batch), column for
+    column. Returns {batch start: launches} and the packet kind."""
+    from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.core.params import calib_to_torch
+    from npswf_tpu_torch.engine.pipeline import (make_pipeline_packed,
+                                                 process_batch,
+                                                 unflatten_packet)
+    from npswf_tpu_torch.io.decode import decode_segment
+    from npswf_tpu_torch.io.writer import WFWriter
+    from npswf_tpu_torch.runtime.executor import (_pad_decoded, _upload_batch,
+                                                  output_to_host, packet_caps)
+    E, B = SEG_BATCH, cfg.nblocks
+    calib = calib_to_torch(cal.device_arrays(cfg), dev, torch.float32)
+    caps = None
+    per_batch = {}
+    for lo in range(0, seg.n_events, E):
+        d = _pad_decoded(cfg, decode_segment(cfg, cal, seg, lo,
+                                             min(lo + E, seg.n_events)), E)
+        if caps is None:
+            caps = packet_caps(E, B, int(d.pres[:, :B].astype(bool).sum()))
+        batch = _upload_batch(cfg, d, torch.float32, dev)
+        kernels.reset_counts()
+        out_dev = process_batch(cfg, calib, batch)
+        torch.cuda.synchronize()
+        per_batch[lo] = dict(kernels.launches)
+        check(not kernels.plain_calls, f"batch at {lo}: plain versions ran")
+        if lo >= 2 * E:
+            continue
+        pack_cap, lane_cap = caps
+        flat = make_pipeline_packed(cfg, calib, pack_cap, lane_cap)(batch)
+        pkt, ovf = unflatten_packet(flat.cpu().numpy(), E, B, pack_cap,
+                                    pres=d.pres[:, :B], lane_cap=lane_cap,
+                                    P=cfg.maxwfpulses)
+        check(not ovf and (lane_cap > 0 or max(int(pkt.n_wf), int(pkt.n_h))
+                           <= pack_cap), f"batch at {lo}: packet overflow")
+        out = output_to_host(out_dev)
+        cols = []
+        for i, (add, arg) in enumerate((("add_packet", pkt), ("add_batch", out))):
+            w = WFWriter(cfg)
+            getattr(w, add)(arg, d)
+            cols.append(w.finalize(os.path.join(tmp, f"cmp{lo}_{i}.npz"),
+                                   compress=False))
+        differ = [k for k in cols[1] if not np.array_equal(cols[0][k], cols[1][k])]
+        check(cols[0].keys() == cols[1].keys() and not differ,
+              f"batch at {lo}: packet and dense parts differ in {differ}")
+    return per_batch, "slab" if caps[1] > 0 else "dense"
+
+
+class _Reruns(logging.Handler):
+    """The batch starts the executor's dense fallback reran (its overflow
+    warning names the batch)."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.starts = []
+
+    def emit(self, record):
+        if "writer-packet overflow" in str(record.msg):
+            self.starts.append(int(record.args[0]))
+
+
+def run_segment_counted(torch, cfg, cal, seg, out, chain, dev):
+    """run_segment on the card, the launch counts read around it alone and
+    the batches its dense fallback reran."""
+    from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.runtime.executor import run_segment
+    from npswf_tpu_torch.utils.timers import StageTimer
+    timers = StageTimer()
+    reruns = _Reruns()
+    logger = logging.getLogger("npswf")
+    logger.addHandler(reruns)
+    try:
+        kernels.reset_counts()
+        res = run_segment(cfg, cal, seg, out, batch_size=SEG_BATCH,
+                          chain_batches=chain, timers=timers, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(reruns)
+    return (res, timers, dict(kernels.launches), dict(kernels.plain_calls),
+            reruns.starts)
+
+
+def _union(intervals):
+    """Merged [start, end) intervals, sorted."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _length(intervals):
+    return sum(b - a for a, b in intervals)
+
+
+def _overlap(x, y):
+    """Length of the intersection of two merged interval lists."""
+    i = j = 0
+    total = 0.0
+    while i < len(x) and j < len(y):
+        lo, hi = max(x[i][0], y[j][0]), min(x[i][1], y[j][1])
+        total += max(hi - lo, 0.0)
+        if x[i][1] < y[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def profile_segment(torch, cfg, cal, seg, dev, tmp, card):
+    """One run_segment under torch.profiler: the device's busy time (the
+    union of kernels and copies on every stream), its idle share of the
+    traced span, and how long kernels or copies of two streams ran at
+    once (the two stage workers overlapping on the card)."""
+    from npswf_tpu_torch.runtime.executor import run_segment
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run_segment(cfg, cal, seg, os.path.join(tmp, "profiled.npz"),
+                    batch_size=SEG_BATCH, device=dev, compress_output=False)
+        torch.cuda.synchronize()
+        span_us = (time.perf_counter() - t0) * 1e6
+    streams = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                e.time_range.elapsed_us() > 0:
+            streams.setdefault(e.device_resource_id, []).append(
+                (e.time_range.start, e.time_range.end))
+    if not streams:
+        say("segment", "profile: no device events recorded; device busy "
+                       "and overlap not measured")
+        return {"device_busy_ms": None}
+    merged = {k: _union(v) for k, v in streams.items()}
+    busy = _length(_union([iv for v in merged.values() for iv in v]))
+    busiest = sorted(merged, key=lambda k: -_length(merged[k]))
+    both = (_overlap(merged[busiest[0]], merged[busiest[1]])
+            if len(busiest) > 1 else 0.0)
+    res = {"events": seg.n_events, "span_ms": span_us / 1e3,
+           "device_busy_ms": busy / 1e3, "idle_share": 1 - busy / span_us,
+           "streams": len(merged),
+           "stream_busy_ms": [_length(merged[k]) / 1e3 for k in busiest],
+           "two_streams_at_once_ms": both / 1e3}
+    say("segment", f"profile of {seg.n_events} sparse events: span "
+                   f"{res['span_ms']:.1f} ms traced, device busy "
+                   f"{res['device_busy_ms']:.1f} ms (idle "
+                   f"{res['idle_share']:.1%}); {len(merged)} streams, busy "
+                   + ", ".join(f"{x:.1f}" for x in res["stream_busy_ms"])
+                   + f" ms; the two busiest ran at once for "
+                   f"{res['two_streams_at_once_ms']:.2f} ms ({card})")
+    return res
+
+
+def check_segments(torch, dev, card, route_ms, records):
+    """The [segment] phase: each segment through run_segment (the sparse
+    one also in chains of SEG_CHAIN), checked and timed."""
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.io.writer import read_wf
+    from npswf_tpu_torch.tools.plotstats import validate
+    cfg = NPSConfig()
+    cal = synthetic_calibration(cfg, seed=1)
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in SEGMENTS:
+            t0 = time.perf_counter()
+            seg = build_segment_in_memory(name)
+            n_ev = seg.n_events
+            n_batches = -(-n_ev // SEG_BATCH)
+            say("segment", f"{name}: {n_ev} events, {seg.stream.size * 8 / 1e6:.1f} "
+                           f"MB of raw stream, built in {time.perf_counter() - t0:.1f} s")
+            per_batch, kind = replay_batches(torch, cfg, cal, seg, dev, tmp)
+            say("segment", f"{name}: first two batches, the {kind} packet's "
+                           f"parts equal the dense path's, column for column")
+            k3 = [c.get("lm_solve", 0) for c in per_batch.values()]
+            say("segment", f"{name}: each batch alone through process_batch: "
+                           f"K3 {min(k3)}-{max(k3)} launches a batch, "
+                           f"{sum(k3)} in all")
+            for lo, c in per_batch.items():
+                for k in ("matched_filter", "search_operands"):
+                    check(c.get(k, 0) == 1, f"{name} batch at {lo}: {k} "
+                                            f"launched {c.get(k, 0)} times")
+                check(c.get("lm_solve", 0) >= 1,
+                      f"{name} batch at {lo}: lm_solve not launched")
+            runs = [1, SEG_CHAIN] if name == "sparse" else [1]
+            files = {}
+            for chain in runs:
+                out = os.path.join(tmp, f"{name}_{chain}.npz")
+                res, timers, launches, plain, reruns = run_segment_counted(
+                    torch, cfg, cal, seg, out, chain, dev)
+                wf = read_wf(out)
+                files[chain] = wf
+                tag = f"{name} chain {chain}"
+                # each batch launches what it launches alone, and a batch
+                # the dense fallback reran launches it twice
+                for k in ("matched_filter", "search_operands", "lm_solve"):
+                    want = sum(per_batch[lo].get(k, 0)
+                               for lo in [*per_batch, *reruns])
+                    check(launches.get(k, 0) == want,
+                          f"{tag}: {k} launched {launches.get(k, 0)} times, "
+                          f"{want} expected from the batches alone and "
+                          f"{len(reruns)} dense reruns")
+                check(not plain, f"{tag}: plain versions ran: {plain}")
+                check(validate(wf) == 0, f"{tag}: event index broken")
+                check(int(wf["wf_offsets"][-1]) == int(wf["wfnpulse"].sum()),
+                      f"{tag}: wf_offsets do not match wfnpulse")
+                n_succ, n_fail = res.n_fit_success, res.n_fit_failure
+                rate = n_fail / max(n_succ + n_fail, 1)
+                check(n_succ > 0 and rate <= FAIL_RATE_MAX,
+                      f"{tag}: failure rate {rate:.4%} ({n_succ} fits ok)")
+                med = {st: timers.median(st) * 1e3 for st in
+                       ("decode", "upload", "pipeline", "fetch", "write",
+                        "interbatch", "merge")}
+                # the mean gap between parts: the batch period of the loop
+                # (a chain writes its parts back to back, so its median
+                # gap is not one)
+                period = (timers.totals["interbatch"] * 1e3
+                          / max(timers.counts["interbatch"], 1))
+                say("segment", f"{tag}: {n_ev} events in {res.wall_time:.3f} s, "
+                               f"{res.events_per_sec:.1f} events/s, "
+                               f"{res.blocks_per_sec:.0f} blocks/s; fits ok "
+                               f"{n_succ}, failed {n_fail} ({rate:.4%}); "
+                               f"launches {launches} over {n_batches} batches "
+                               f"and {len(reruns)} dense reruns, as the "
+                               f"batches alone launch ({card})")
+                say("segment", f"{tag}: stage medians ms " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in med.items()) + "; totals s "
+                    + ", ".join(f"{k} {timers.totals[k]:.3f}"
+                                for k in sorted(timers.totals)))
+                say("segment", f"{tag}: batch period (mean interbatch) "
+                               f"{period:.3f} ms against the default route's "
+                               f"process_batch {route_ms:.3f} ms a dense "
+                               f"{E_BENCH}-event batch ({card})")
+                summary[f"{name}_chain{chain}"] = {
+                    "events": n_ev, "batches": n_batches, "packet": kind,
+                    "wall_s": res.wall_time, "events_per_s": res.events_per_sec,
+                    "blocks_per_s": res.blocks_per_sec, "fits_ok": n_succ,
+                    "fits_failed": n_fail, "launches": launches,
+                    "dense_reruns": len(reruns),
+                    "stage_median_ms": med, "batch_period_ms": period,
+                    "stage_total_s": dict(timers.totals),
+                    "stage_calls": dict(timers.counts),
+                    "default_route_ms": route_ms, "card": card}
+                if name == "sparse" and chain == 1:
+                    for k in ("matched_filter", "search_operands", "lm_solve"):
+                        records[k]["segment_launches"] = launches.get(k, 0)
+            if name == "sparse":
+                summary["profile"] = profile_segment(
+                    torch, cfg, cal, seg.slice(0, min(n_ev, 16 * SEG_BATCH)),
+                    dev, tmp, card)
+            if len(files) > 1:
+                a, b = files[1], files[SEG_CHAIN]
+                differ = [k for k in a if not np.array_equal(a[k], b[k])
+                          or a[k].dtype != b[k].dtype]
+                check(a.keys() == b.keys() and not differ,
+                      f"{name}: chained file differs in {differ}")
+                say("segment", f"{name}: chains of {SEG_CHAIN} write the plain "
+                               f"run's file, column for column")
+            del seg, files
+    return summary
+
+
+def check_cli(card):
+    """synth -> run (the card: no --cpu) -> validate in subprocesses."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    with tempfile.TemporaryDirectory() as tmp:
+        seg, cal, out = (os.path.join(tmp, n) for n in ("s.npz", "c.npz", "o.npz"))
+        steps = [("synth", "--events", str(CLI_EVENTS), "--out", seg,
+                  "--calib-out", cal),
+                 ("run", "--input", seg, "--calib", cal, "--out", out),
+                 ("validate", out)]
+        outs = []
+        for argv in steps:
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "npswf_tpu_torch.tools.cli",
+                                  *argv], capture_output=True, text=True,
+                                 env=env, cwd=REPO, timeout=600)
+            check(res.returncode == 0, f"cli {argv[0]} failed ({res.returncode}):"
+                                       f"\n{res.stdout[-2000:]}{res.stderr[-3000:]}")
+            outs.append(res.stdout)
+            say("cli", f"{argv[0]}: rc 0 in {time.perf_counter() - t0:.1f} s; "
+                       + res.stdout.strip().splitlines()[-1])
+        check("fits succeed" in outs[1], "cli run printed no fit totals")
+        check("index OK" in outs[2], "cli validate did not pass")
+    say("cli", f"synth -> run on the card -> validate: index OK ({card})")
 
 
 def main() -> int:
@@ -781,9 +1135,9 @@ def run(torch) -> int:
 
     # ---- 4./5. the routes of the main path, their checks and times -----
     default_out = None
-    route_launches = {}
+    route_launches, route_ms = {}, {}
     for route in ROUTES:
-        out, route_launches[route] = run_route(
+        out, route_launches[route], route_ms[route] = run_route(
             torch, cfg.replace(**ROUTE_FLAGS[route]), calib, truth, batch,
             route, card, default_out)
         if default_out is None:
@@ -791,8 +1145,13 @@ def run(torch) -> int:
     for name, route in LAUNCHES_FROM.items():
         records[name]["launches"] = route_launches[route].get(name, 0)
     time_lm_launches(torch, cfg, calib, batch, records, card)
+    del default_out, out, truth, batch
 
-    # ---- 6. records -----------------------------------------------------
+    # ---- 6. the segment executor and the CLI -----------------------------
+    segment = check_segments(torch, dev, card, route_ms["default"], records)
+    check_cli(card)
+
+    # ---- 7. records -----------------------------------------------------
     for r in records.values():
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms"):
@@ -803,6 +1162,7 @@ def run(torch) -> int:
                      f"({r['bound_by']}){lib}; {r['launches']} launches on "
                      f"its route ({card})")
     print(json.dumps({"kernels": list(records.values())}))
+    print(json.dumps({"segment": segment}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

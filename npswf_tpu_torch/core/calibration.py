@@ -1,5 +1,5 @@
-# Copied from npswf_tpu/core/calibration.py (without the bundle's npz save and
-# load); tests/test_torch_host.py pins it there.
+# Copied from npswf_tpu/core/calibration.py; tests/test_torch_host.py pins it
+# there.
 """Calibration / reference-data layer.
 
 TPU-native equivalent of the reference's global, read-once calibration state
@@ -194,6 +194,28 @@ class CalibrationBundle:
             "spline_x0": self.spline_x0.astype(dt),
             "timerefacc": np.asarray(self.timerefacc, dtype=dt),
         }
+
+    # ---- persistence ---------------------------------------------------
+    def save(self, path: str) -> None:
+        np.savez_compressed(
+            path, interp_x=self.interp_x, interp_y=self.interp_y,
+            timeref=self.timeref, preswf=self.preswf,
+            mfkern_rev=self.mfkern_rev, mfint=self.mfint,
+            tdcoffset=self.tdcoffset, cortime=self.cortime,
+            timerefacc=np.float64(self.timerefacc), timemean2=self.timemean2,
+            spline_coeffs=self.spline_coeffs, spline_x0=self.spline_x0,
+            run=np.int64(self.run))
+
+    @classmethod
+    def load(cls, path: str) -> "CalibrationBundle":
+        z = np.load(path)
+        return cls(interp_x=z["interp_x"], interp_y=z["interp_y"],
+                   timeref=z["timeref"], preswf=z["preswf"].astype(bool),
+                   mfkern_rev=z["mfkern_rev"], mfint=z["mfint"],
+                   tdcoffset=z["tdcoffset"], cortime=z["cortime"],
+                   timerefacc=float(z["timerefacc"]), timemean2=z["timemean2"],
+                   spline_coeffs=z["spline_coeffs"], spline_x0=z["spline_x0"],
+                   run=int(z["run"]))
 
 
 def _derive_block(cfg: NPSConfig, xs: np.ndarray, ys: np.ndarray):

@@ -17,11 +17,19 @@ reports fitted amplitudes, t_fit*dt + corr_time_HMS - cortime -
 timerefacc*dt and chi2/ndf. timewf/amplwf pick the pulse with |time|
 closest to zero, first on ties; h1time/h2time are filled for gate-passed
 pulses with final amplitude > 20.
+
+Below it, counterparts of the JAX package's writer packets and chains
+(npswf_tpu/engine/pipeline.py:455-865): ``pack_for_writer`` and
+``flatten_packet`` (the dense packet), ``flatten_packet_slab`` (present
+lanes only), their host inverses ``unflatten_packet*`` (numpy, copied),
+``make_pipeline_packed`` and its chain over k batches.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from npswf_tpu_torch.core.config import NPSConfig
@@ -284,3 +292,320 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
         n_high_pulse=n_high,
         n_search_dropped=n_search_dropped,
         search_overflow=search_overflow.reshape(E, B))
+
+
+# ----------------------------------------------------------------------
+# Writer packet: what the WF writer needs, compacted on the device
+# ----------------------------------------------------------------------
+class WriterPacket(NamedTuple):
+    """The minimal device-to-host payload of the WF writer.
+
+    The ragged flatten of the pulse tensors (event -> block -> slot order,
+    that of ``writer.flatten_pulses_np``) happens on the device into
+    fixed-capacity buffers; ``n_wf``/``n_h`` are the true totals, so the
+    executor can fall back to the dense output when they overflow.
+    """
+    wfnpulse: torch.Tensor       # [E, B] i32
+    wf_counts_e: torch.Tensor    # [E] i32 — pulses per event
+    wftime_flat: torch.Tensor    # [cap]
+    wfampl_flat: torch.Tensor    # [cap]
+    n_wf: torch.Tensor           # [] i32 — true total (may exceed cap)
+    h_counts_e: torch.Tensor     # [E] i32 — h1/h2 entries per event
+    h1time_flat: torch.Tensor    # [cap]
+    h2time_flat: torch.Tensor    # [cap]
+    n_h: torch.Tensor            # [] i32
+    chi2: torch.Tensor           # [E, B]
+    ampl: torch.Tensor           # [E, B]
+    amplwf: torch.Tensor         # [E, B]
+    timewf: torch.Tensor         # [E, B]
+    pedwf: torch.Tensor          # [E, B]
+    enertot: torch.Tensor        # [E]
+    integtot: torch.Tensor       # [E]
+    search_overflow: torch.Tensor  # [E, B] bool
+    n_fit_success: torch.Tensor
+    n_fit_failure: torch.Tensor
+    n_fit_dropped: torch.Tensor
+    n_high_pulse: torch.Tensor
+    n_search_dropped: torch.Tensor
+
+
+def _ragged_flatten_device(mask: torch.Tensor, arrays, cap: int):
+    """Compact ``arrays[mask]`` (row-major) into [cap] buffers + true count.
+
+    A stable argsort keyed on ``~mask`` front-packs the masked elements in
+    their row-major order, then one gather per array; masked-out values
+    are zeroed first, so the buffers end in zeros up to ``cap`` (the JAX
+    package's stable multi-operand sort, element for element). No host
+    sync."""
+    v = mask.reshape(-1)
+    order = torch.argsort((~v).to(torch.int32), stable=True)[:cap]
+    flats = tuple(torch.where(v, a.reshape(-1), torch.zeros((), dtype=a.dtype,
+                                                            device=a.device))[order]
+                  for a in arrays)
+    return flats, v.sum(dtype=torch.int32)
+
+
+def pack_for_writer(out: PipelineOutput, cap: int) -> WriterPacket:
+    E, B, P = out.wftime.shape
+    prefix = (torch.arange(P, dtype=torch.int32, device=out.wftime.device)
+              [None, None, :] < out.wfnpulse[:, :, None])
+    (wt, wa), n_wf = _ragged_flatten_device(
+        prefix, (out.wftime, out.wfampl), cap)
+    (h1f, h2f), n_h = _ragged_flatten_device(
+        out.h_mask, (out.h1time, out.h2time), cap)
+    return WriterPacket(
+        wfnpulse=out.wfnpulse,
+        wf_counts_e=out.wfnpulse.sum(dim=1, dtype=torch.int32),
+        wftime_flat=wt, wfampl_flat=wa, n_wf=n_wf,
+        h_counts_e=out.h_mask.sum(dim=(1, 2), dtype=torch.int32),
+        h1time_flat=h1f, h2time_flat=h2f, n_h=n_h,
+        chi2=out.chi2, ampl=out.ampl, amplwf=out.amplwf,
+        timewf=out.timewf, pedwf=out.pedwf,
+        enertot=out.enertot, integtot=out.integtot,
+        search_overflow=out.search_overflow,
+        n_fit_success=out.n_fit_success, n_fit_failure=out.n_fit_failure,
+        n_fit_dropped=out.n_fit_dropped, n_high_pulse=out.n_high_pulse,
+        n_search_dropped=out.n_search_dropped)
+
+
+# ----------------------------------------------------------------------
+# One fp32 buffer a batch: the packet serialized on the device
+# ----------------------------------------------------------------------
+# Every field is exact in fp32: pulse counts <= 12, flat counts < 2^24,
+# flags, and the outputs themselves, which the writer stores from fp32
+# whatever the compute dtype (as the JAX package does), so one
+# device-to-host copy carries the whole packet.
+
+# the per-lane [E, B] packet fields, in order (subject to lane compaction)
+_LANE_FIELDS = ("wfnpulse", "chi2", "ampl", "amplwf", "timewf", "pedwf",
+                "search_overflow")
+
+
+def _packet_layout(E: int, B: int, cap: int):
+    """[(field, shape, host dtype)] in dense serialization order (None:
+    float32); the sparse layout is ``_slab_layout``."""
+    i32, f32, bl = np.int32, None, bool
+    lane_shape = (E, B)
+    return [
+        ("wfnpulse", lane_shape, i32), ("wf_counts_e", (E,), i32),
+        ("wftime_flat", (cap,), f32), ("wfampl_flat", (cap,), f32),
+        ("n_wf", (), i32), ("h_counts_e", (E,), i32),
+        ("h1time_flat", (cap,), f32), ("h2time_flat", (cap,), f32),
+        ("n_h", (), i32), ("chi2", lane_shape, f32),
+        ("ampl", lane_shape, f32),
+        ("amplwf", lane_shape, f32), ("timewf", lane_shape, f32),
+        ("pedwf", lane_shape, f32), ("enertot", (E,), f32),
+        ("integtot", (E,), f32), ("search_overflow", lane_shape, bl),
+        ("n_fit_success", (), i32), ("n_fit_failure", (), i32),
+        ("n_fit_dropped", (), i32), ("n_high_pulse", (), i32),
+        ("n_search_dropped", (), i32),
+    ]
+
+
+def flatten_packet(pkt: WriterPacket) -> torch.Tensor:
+    """Serialize (on the device) to one [total] fp32 vector."""
+    return torch.cat([getattr(pkt, name).reshape(-1).to(torch.float32)
+                      for name, _, _ in _packet_layout(
+                          *pkt.wfnpulse.shape, pkt.wftime_flat.shape[0])])
+
+
+# ---- slab packet (sparse readout) ------------------------------------
+# With few present lanes the packet ships per-lane slabs ([lane_cap, P]
+# rows in row-major present order: one [E*B] argsort and gathers) instead
+# of flattening on the device; the host rebuilds the exact ragged arrays.
+# Only lane overflow (more present lanes than lane_cap) forces the dense
+# fallback.
+
+def _slab_layout(E: int, B: int, P: int, lane_cap: int):
+    """[(field, shape, host dtype)] for the slab packet serialization."""
+    i32, f32, bl = np.int32, None, bool
+    lane_dt = {"wfnpulse": i32, "search_overflow": bl}
+    layout = [
+        ("wfnpulse", (lane_cap,), i32), ("wf_counts_e", (E,), i32),
+        ("wftime_slab", (lane_cap, P), f32),
+        ("wfampl_slab", (lane_cap, P), f32),
+        ("h1_slab", (lane_cap, P), f32),
+        ("h2_slab", (lane_cap, P), f32),
+        ("hmask_slab", (lane_cap, P), bl),
+        ("h_counts_e", (E,), i32),
+        ("chi2", (lane_cap,), f32), ("ampl", (lane_cap,), f32),
+        ("amplwf", (lane_cap,), f32), ("timewf", (lane_cap,), f32),
+        ("pedwf", (lane_cap,), f32),
+        ("enertot", (E,), f32), ("integtot", (E,), f32),
+        ("search_overflow", (lane_cap,), bl),
+        ("n_fit_success", (), i32), ("n_fit_failure", (), i32),
+        ("n_fit_dropped", (), i32), ("n_high_pulse", (), i32),
+        ("n_search_dropped", (), i32),
+    ]
+    layout += [(f"default_{f}", (), lane_dt.get(f)) for f in _LANE_FIELDS]
+    layout.append(("n_pres", (), i32))
+    return layout
+
+
+def flatten_packet_slab(out: PipelineOutput, pres: torch.Tensor,
+                        lane_cap: int) -> torch.Tensor:
+    """Serialize a PipelineOutput directly to one [total] fp32 slab packet.
+
+    ``pres`` is the decoder's present mask (EventBatch.pres as uploaded).
+    No ragged flatten happens on the device; see _slab_layout."""
+    E, B, P = out.wftime.shape
+    v = pres.reshape(-1).to(torch.int32)
+    sel = torch.argsort(1 - v, stable=True)[:lane_cap]   # present lanes first
+    idx_abs = torch.argmin(v)                            # first absent lane
+    lane2d = {"wftime_slab": out.wftime, "wfampl_slab": out.wfampl,
+              "h1_slab": out.h1time, "h2_slab": out.h2time,
+              "hmask_slab": out.h_mask}
+    derived = {
+        "wf_counts_e": out.wfnpulse.sum(dim=1, dtype=torch.int32),
+        "h_counts_e": out.h_mask.sum(dim=(1, 2), dtype=torch.int32),
+        "n_pres": v.sum(dtype=torch.int32),
+    }
+    parts = []
+    for name, _, _ in _slab_layout(E, B, P, lane_cap):
+        if name in lane2d:
+            val = lane2d[name].reshape(E * B, P)[sel]
+        elif name in derived:
+            val = derived[name]
+        elif name.startswith("default_"):
+            val = getattr(out, name[len("default_"):]).reshape(-1)[idx_abs]
+        elif name in _LANE_FIELDS:
+            val = getattr(out, name).reshape(-1)[sel]
+        else:
+            val = getattr(out, name)
+        parts.append(val.reshape(-1).to(torch.float32))
+    return torch.cat(parts)
+
+
+def unflatten_packet_slab(buf, E: int, B: int, P: int, lane_cap: int,
+                          pres) -> Tuple[WriterPacket, bool]:
+    """Host-side inverse of ``flatten_packet_slab``: rebuilds the exact
+    WriterPacket (including the ragged wftime/wfampl/h1/h2 flats the
+    writer consumes, in the same row-major element order the device
+    flatten produced). Returns (packet, lane_overflow)."""
+    import numpy as np
+    buf = np.asarray(buf)
+    fields = {}
+    off = 0
+    for name, shape, dt in _slab_layout(E, B, P, lane_cap):
+        n = 1
+        for s in shape:
+            n *= s
+        val = buf[off:off + n].reshape(shape)
+        if dt is not None:
+            val = val.astype(dt if dt is bool else np.int32)
+        fields[name] = val if shape else val[()]
+        off += n
+    n_pres = int(fields.pop("n_pres"))
+    rows = np.flatnonzero(np.asarray(pres).astype(bool).reshape(-1))
+    overflow = n_pres > lane_cap
+    nr = min(rows.size, lane_cap)
+
+    def dense_lane(f):
+        default = fields.pop(f"default_{f}")
+        vals = np.asarray(fields.pop(f))
+        dense = np.full(E * B, default, vals.dtype)
+        if not overflow:
+            dense[rows] = vals[:nr]
+        return dense
+
+    wfnpulse = dense_lane("wfnpulse")
+    lane_fields = {f: dense_lane(f).reshape(E, B)
+                   for f in _LANE_FIELDS if f != "wfnpulse"}
+
+    def dense_slab(name, dtype):
+        slab = fields.pop(name)
+        dense = np.zeros((E * B, P), dtype)
+        if not overflow:
+            dense[rows] = slab[:nr].astype(dtype)
+        return dense
+
+    wt = dense_slab("wftime_slab", np.float32)
+    wa = dense_slab("wfampl_slab", np.float32)
+    h1 = dense_slab("h1_slab", np.float32)
+    h2 = dense_slab("h2_slab", np.float32)
+    hm = dense_slab("hmask_slab", bool)
+    prefix = np.arange(P)[None, :] < wfnpulse[:, None]
+    pkt = WriterPacket(
+        wfnpulse=wfnpulse.reshape(E, B),
+        wf_counts_e=fields["wf_counts_e"],
+        wftime_flat=wt[prefix], wfampl_flat=wa[prefix],
+        n_wf=int(prefix.sum()),
+        h_counts_e=fields["h_counts_e"],
+        h1time_flat=h1[hm], h2time_flat=h2[hm], n_h=int(hm.sum()),
+        chi2=lane_fields["chi2"], ampl=lane_fields["ampl"],
+        amplwf=lane_fields["amplwf"], timewf=lane_fields["timewf"],
+        pedwf=lane_fields["pedwf"],
+        enertot=fields["enertot"], integtot=fields["integtot"],
+        search_overflow=lane_fields["search_overflow"],
+        n_fit_success=fields["n_fit_success"],
+        n_fit_failure=fields["n_fit_failure"],
+        n_fit_dropped=fields["n_fit_dropped"],
+        n_high_pulse=fields["n_high_pulse"],
+        n_search_dropped=fields["n_search_dropped"])
+    return pkt, overflow
+
+
+def unflatten_packet(buf, E: int, B: int, cap: int,
+                     pres=None, lane_cap: int = 0, P: int = 0):
+    """Host-side inverse of the packet serializations (numpy in/out).
+
+    ``lane_cap`` == 0: inverse of ``flatten_packet`` (dense mode).
+    ``lane_cap`` > 0: inverse of ``flatten_packet_slab`` — the caller
+    passes the decoded ``pres`` [E, B] host mask and ``P``
+    (cfg.maxwfpulses); the ragged flats are rebuilt host-side.
+
+    Returns ``(packet, lane_overflow)``: ``lane_overflow`` is True when
+    the batch had more present lanes than ``lane_cap`` (the packet is
+    then unusable — the executor falls back to the dense fetch of the
+    full PipelineOutput)."""
+    if lane_cap > 0:
+        return unflatten_packet_slab(buf, E, B, P, lane_cap, pres)
+    import numpy as np
+    buf = np.asarray(buf)
+    fields = {}
+    off = 0
+    for name, shape, dt in _packet_layout(E, B, cap):
+        n = 1
+        for s in shape:
+            n *= s
+        v = buf[off:off + n].reshape(shape)
+        if dt is not None:
+            v = v.astype(dt if dt is bool else np.int32)
+        fields[name] = v if shape else v[()]
+        off += n
+    return WriterPacket(**fields), False
+
+
+def _packed(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
+            batch: EventBatch, cap: int, lane_cap: int) -> torch.Tensor:
+    out = process_batch(cfg, calib, batch)
+    if lane_cap > 0:
+        return flatten_packet_slab(out, batch.pres, lane_cap)
+    return flatten_packet(pack_for_writer(out, cap))
+
+
+def make_pipeline_packed(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
+                         cap: int, lane_cap: int = 0):
+    """``fn(batch) -> [total] fp32``: process_batch, the writer packing and
+    its serialization, one buffer a batch on the batch's device. With
+    ``lane_cap`` > 0 the slab packet (present lanes only)."""
+    return functools.partial(_packed, cfg, calib, cap=cap, lane_cap=lane_cap)
+
+
+# ----------------------------------------------------------------------
+# Chains: k batches a call, one stacked result
+# ----------------------------------------------------------------------
+# The JAX package scans k batches inside one executable; here the k
+# process_batch calls run in turn and their packets are stacked, so the
+# caller fetches one [k, total] buffer with one copy. Lane results never
+# depend on batch neighbours: a chain equals k single calls bit for bit.
+
+def make_pipeline_packed_chain(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
+                               cap: int, lane_cap: int = 0):
+    """Chained make_pipeline_packed: ``fn(batches) -> [k, total]`` fp32,
+    the packets of k EventBatches stacked."""
+    packed = make_pipeline_packed(cfg, calib, cap, lane_cap)
+
+    def chain(batches) -> torch.Tensor:
+        return torch.stack([packed(b) for b in batches])
+    return chain

@@ -135,20 +135,20 @@ def fused_eval_plain(cfg: NPSConfig, coeffs_pad, x0, t_par, a_par, ped,
                      pulse_mask):
     """The plain version of K5 (the body of the reference package's
     PallasSplineRefModel evaluation)."""
-    kernels.plain_calls[kernels.FUSED_EVAL] += 1
+    kernels.count_plain(kernels.FUSED_EVAL)
     return _eval(cfg, coeffs_pad, x0, t_par, a_par, ped, pulse_mask)
 
 
 def fused_neq_plain(cfg: NPSConfig, y, w, f, jt, ja, dpdu):
     """The plain version of K7."""
-    kernels.plain_calls[kernels.FUSED_NEQ] += 1
+    kernels.count_plain(kernels.FUSED_NEQ)
     return _neq(y, w, f, jt, ja, dpdu)
 
 
 def fused_system_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u, lo, hi,
                        p_seed, param_mask):
     """The plain version of K6."""
-    kernels.plain_calls[kernels.FUSED_SYSTEM] += 1
+    kernels.count_plain(kernels.FUSED_SYSTEM)
     return system_plain_body(cfg, coeffs_pad, x0, y, w, u, lo, hi, p_seed,
                              param_mask)
 
@@ -209,7 +209,7 @@ def fused_eval(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
         float(cfg.spline_gate_lo), float(cfg.ntime - 1),
         kernels.stream_ptr(dev))
     kernels.check(code, kernels.FUSED_EVAL)
-    kernels.launches[kernels.FUSED_EVAL] += 1
+    kernels.count_launch(kernels.FUSED_EVAL)
     return f, jt, ja
 
 
@@ -243,7 +243,7 @@ def fused_neq(cfg: NPSConfig, y: torch.Tensor, w: torch.Tensor,
         kernels.dtype_code(dt), P, ptrs, out.data_ptr(), N, K,
         kernels.stream_ptr(dev))
     kernels.check(code, kernels.FUSED_NEQ)
-    kernels.launches[kernels.FUSED_NEQ] += 1
+    kernels.count_launch(kernels.FUSED_NEQ)
     return _unpack(out, M)
 
 
@@ -284,5 +284,5 @@ def fused_system(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
         kernels.dtype_code(dt), P, ptrs, out.data_ptr(), N, K, cfg.fit_lo_bin,
         float(cfg.spline_gate_lo), float(cfg.ntime - 1), kernels.stream_ptr(dev))
     kernels.check(code, kernels.FUSED_SYSTEM)
-    kernels.launches[kernels.FUSED_SYSTEM] += 1
+    kernels.count_launch(kernels.FUSED_SYSTEM)
     return _unpack(out, M)

@@ -24,7 +24,7 @@ def lm_solve_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
     iteration (``fit.lm.lm_loop``) with the plain K6 arithmetic (the plain
     K5 evaluation, then the normal equations summed in bin order), the
     system K3 evaluates inside its loop."""
-    kernels.plain_calls[kernels.LM_SOLVE] += 1
+    kernels.count_plain(kernels.LM_SOLVE)
 
     def system(u):
         return system_plain_body(cfg, coeffs_pad, x0, y, w, u, lo, hi, p_seed,
@@ -100,5 +100,5 @@ def lm_solve_kernel(cfg: NPSConfig, coeffs_pad: torch.Tensor,
         float(cfg.spline_gate_lo), float(cfg.ntime - 1), SAT_THRESH, CHOL_EPS,
         kernels.stream_ptr(dev))
     kernels.check(code, kernels.LM_SOLVE)
-    kernels.launches[kernels.LM_SOLVE] += 1
+    kernels.count_launch(kernels.LM_SOLVE)
     return u, chi2, conv.bool(), n_iter, edm, lam

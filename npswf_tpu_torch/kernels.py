@@ -12,7 +12,8 @@ is no fallback.
 Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code. ``launches`` counts kernel launches by name and
 ``plain_calls`` counts calls of the plain PyTorch versions, so a run can
-show which path it took.
+show which path it took. ``count_launch`` and ``count_plain`` add to them
+under a lock: the segment executor runs ``process_batch`` on two threads.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -46,11 +48,23 @@ KERNEL_NAMES = (MATCHED_FILTER, SEARCH_OPERANDS, SEARCH_TOPK, LM_SOLVE,
 
 launches: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        launches[name] += 1
+
+
+def count_plain(name: str) -> None:
+    with _count_lock:
+        plain_calls[name] += 1
 
 
 def reset_counts() -> None:
-    launches.clear()
-    plain_calls.clear()
+    with _count_lock:
+        launches.clear()
+        plain_calls.clear()
 
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -66,6 +80,7 @@ _SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_lib_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -146,13 +161,14 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _lib = lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

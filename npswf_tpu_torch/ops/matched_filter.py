@@ -20,7 +20,7 @@ def matched_filter(cfg: NPSConfig, signal: torch.Tensor,
                    minsignal: torch.Tensor, kern_rev: torch.Tensor,
                    mfint: torch.Tensor) -> torch.Tensor:
     """signal [N, T], minsignal [N], kern_rev [N, W], mfint [N] -> [N, T]."""
-    kernels.plain_calls[kernels.MATCHED_FILTER] += 1
+    kernels.count_plain(kernels.MATCHED_FILTER)
     T, W, R = cfg.ntime, cfg.mfwidth, cfg.mfright
     lo, hi = cfg.mfleft, T - cfg.mfright
     n = hi - lo

@@ -38,5 +38,5 @@ def matched_filter_kernel(cfg: NPSConfig, signal: torch.Tensor,
         kern_rev.data_ptr(), mfint.data_ptr(), out.data_ptr(), N, T, W,
         cfg.mfleft, T - cfg.mfright, cfg.mfright, kernels.stream_ptr(dev))
     kernels.check(code, kernels.MATCHED_FILTER)
-    kernels.launches[kernels.MATCHED_FILTER] += 1
+    kernels.count_launch(kernels.MATCHED_FILTER)
     return out

@@ -99,7 +99,7 @@ def search_operands(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
     negkey (-amplitude on accepted peaks, +inf elsewhere), centroid, pos_y
     (source at the rounded centroid) and aux at round(centroid) + aux_offset
     (the XLA path of npswf_tpu/ops/peak_search.py:124-297)."""
-    kernels.plain_calls[kernels.SEARCH_OPERANDS] += 1
+    kernels.count_plain(kernels.SEARCH_OPERANDS)
     return _operands(cfg, src, aux, aux_offset)
 
 
@@ -109,7 +109,7 @@ def search_topk(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
     of their stable sort on negkey (descending amplitude, ties in bin
     order), each [N, P]. Slots past a lane's accepted peaks hold negkey
     +inf; their other values are masked by the caller."""
-    kernels.plain_calls[kernels.SEARCH_TOPK] += 1
+    kernels.count_plain(kernels.SEARCH_TOPK)
     return _select(_operands(cfg, src, aux, aux_offset), P)
 
 

@@ -56,7 +56,7 @@ def _launch(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
         m0, m1, det, float(area), float(cfg.specthres), resp_h.ctypes.data,
         bvec_h.ctypes.data, kernels.stream_ptr(dev))
     kernels.check(code, name)
-    kernels.launches[name] += 1
+    kernels.count_launch(name)
     return tuple(outs)
 
 

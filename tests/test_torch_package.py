@@ -9,6 +9,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -66,7 +67,9 @@ def test_port_imports_no_jax():
             "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'npswf_tpu'))\n"
             "assert not bad, bad\n"
-            "assert 'npswf_tpu_torch.fit.eval_kernel' in sys.modules\n")
+            "for m in ('fit.eval_kernel', 'runtime.executor', 'io.native', "
+            "'io.decode', 'tools.cli', 'utils.timers', 'golden.reference'):\n"
+            "    assert 'npswf_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -103,6 +106,70 @@ def test_cpu_tensors_take_the_plain_path(route):
     assert {n for n, c in kernels.plain_calls.items() if c > 0} == names
     assert int(out.n_fit_success) > 0
     assert out.wftime.dtype == torch.float32
+
+
+def test_counts_exact_from_two_threads():
+    """The segment executor runs process_batch on two threads: the plain
+    calls of two concurrent runs are counted exactly twice those of one
+    (with a short switch interval, so that an unlocked += would lose
+    updates)."""
+    cfg, cal, truth = _small()
+    calib = calib_to_torch(cal.device_arrays(cfg), "cpu", torch.float32)
+    batch = batch_to_torch(truth.signal, truth.pres, np.zeros(2), "cpu",
+                           torch.float32)
+    kernels.reset_counts()
+    process_batch(cfg, calib, batch)
+    one = dict(kernels.plain_calls)
+    kernels.reset_counts()
+    errors = []
+
+    def work():
+        try:
+            for _ in range(2):
+                process_batch(cfg, calib, batch)
+        except Exception as e:       # noqa: BLE001 — reported below
+            errors.append(e)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(t.is_alive() for t in threads)
+    assert dict(kernels.plain_calls) == {k: 4 * v for k, v in one.items()}
+    assert sum(kernels.launches.values()) == 0
+
+
+def test_count_increments_lose_nothing():
+    """Stress of the counters alone: 16 threads (more than the cores) count
+    the same 5,000 new names under a short switch interval (a Counter's
+    first increment of a name calls back into Python); every increment
+    counts."""
+    kernels.reset_counts()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    names = [f"stress{i}" for i in range(5000)]
+
+    def work():
+        for name in names:
+            kernels.count_plain(name)
+            kernels.count_launch(name)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert set(kernels.plain_calls.values()) == {16}
+    assert set(kernels.launches.values()) == {16}
+    kernels.reset_counts()
 
 
 def test_build_needs_the_toolkit(monkeypatch, tmp_path):
