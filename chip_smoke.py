@@ -10,7 +10,10 @@ full 1080-block calorimeter along four routes: the default path (K1, K2,
 K3), the generic LM loop with the in-kernel top-P search (K1, K4, K5) and
 its two system variants (K5 + K7, and K6). Each route's launch counts are
 read from its own run, its result is checked, and it is timed against the
-plain path. Then the ``[segment]`` phase drives the production entry
+plain path. The ``[buckets]`` phase runs a pileup-heavy batch under bucket
+bounds that route lanes to fit widths 1, 2, 4, 5, 10 and 12, on the
+default route (K3) and on ``use_fused_system`` (K6), each bucket's
+decisions against the plain path. Then the ``[segment]`` phase drives the production entry
 point, ``runtime.executor.run_segment``, from raw segments built in memory
 to WF files: 4,096 events read out sparsely (occupancy 0.03: the slab
 packet, the present-lane upload), once plain and once in chains of 4, and
@@ -19,10 +22,14 @@ held to those of its batches run alone (plus the batches its dense
 fallback reran), the file's checks, the packet path against the dense path
 on the first two batches, the stage medians; then the CLI (synth, run, validate) in a
 subprocess. It prints one JSON line of kernel records (times, launches,
-bounds), one of the segment runs, the card's name and power limit, and a
-last JSON line ``{"ok": true, "device": {...}}``. Any failed phase exits
-non-zero. It imports no jax. Without a CUDA device, or outside the
-repository, it exits non-zero and prints no result.
+bounds), one of the segment runs, one of the buckets, the card's name and
+power limit, and a last JSON line ``{"ok": true, "device": {...}}``. Any
+failed phase exits non-zero. It imports no jax. Without a CUDA device, or
+outside the repository, it exits non-zero and prints no result.
+
+``python3 chip_smoke.py --time-systems ROOT`` only times K6 and K7 (the
+wrapper and the kernel alone) with the package of the checkout at ROOT,
+to compare two checkouts on one card in turns.
 """
 from __future__ import annotations
 
@@ -62,7 +69,7 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
                         "npswf_tpu/ops/pallas_search.py:68"),
     "search_topk": ("npswf_tpu_torch/csrc/search.cu",
                     "npswf_tpu/ops/pallas_search.py:277"),
-    "lm_solve": ("npswf_tpu_torch/csrc/lm.cu",
+    "lm_solve": ("npswf_tpu_torch/csrc/lm.cuh",
                  "npswf_tpu/fit/pallas_lm.py:122"),
     "fused_eval": ("npswf_tpu_torch/csrc/eval.cu",
                    "npswf_tpu/fit/pallas_eval.py:64"),
@@ -536,78 +543,141 @@ def check_fused_eval(torch, cfg, cal, dev, records):
             del args, k, p
 
 
-def check_systems(torch, cfg, cal, dev, records):
-    """K6 at P = 2, 4, 12 and K7 at P = 2, 4 against their plain versions
-    on LM inputs at a point perturbed by +-0.3 in u. Both sum over the bins
-    in one order with the same column arithmetic: bit-equal expected at
-    both types; the bands allow 1e-12 relative at fp64 and 1e-5 at fp32
-    should the card's sin/cos differ from PyTorch's."""
-    from npswf_tpu_torch.fit.eval_kernel import (dp_du, fused_eval,
-                                                 fused_neq, fused_neq_plain,
-                                                 fused_system,
-                                                 fused_system_plain,
+def system_inputs(torch, cfg, cal, n, P, max_pulses, seed, dtype, dev):
+    """K6's arguments on LM inputs at a point perturbed by +-0.3 in u, and
+    for P <= NARROW_P K7's (K5's outputs at that point and dp/du), else
+    None. y is a window of the signal rows (a row stride of ntime), as the
+    pipeline passes it."""
+    from npswf_tpu_torch.fit.eval_kernel import (NARROW_P, dp_du, fused_eval,
                                                  to_physical)
+    (coeffs_pad, x0, y, w, u0, lo, hi, p_seed, pm, _, _, _, _) = \
+        lm_inputs(torch, cfg, cal, n, max_pulses, P, seed, dtype, dev)
+    rng = np.random.default_rng(seed + 10)
+    u = u0 + torch.as_tensor(rng.uniform(-0.3, 0.3, tuple(u0.shape)),
+                             dtype=dtype, device=dev)
+    sys_args = (coeffs_pad, x0, y, w, u, lo, hi, p_seed, pm)
+    if P > NARROW_P:
+        return sys_args, None
+    pp = to_physical(u, lo, hi, p_seed, pm)
+    ev = fused_eval(cfg, coeffs_pad, x0, pp[:, 1::2], pp[:, 2::2], pp[:, 0],
+                    pm[:, 2::2])
+    return sys_args, (y, w, *ev, dp_du(u, lo, hi, pm))
+
+
+def device_activities(torch, fn):
+    """Names of the device activities (kernels, copies, fills) of one call
+    of ``fn``, from torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def kernel_ms(torch, fn, reps, name):
+    """Mean device time of the kernel whose name holds ``name`` over
+    ``reps`` calls of ``fn`` (torch.profiler, after one warm-up call): the
+    kernel alone, without the wrapper's host time. None when the profiler
+    records no device activity."""
+    fn()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return sum(us) / 1e3 / len(us) if us else None
+
+
+# K6 at the widths of the buckets chip_smoke drives (1, 2, 4, the middle 5,
+# the wide 10 and 12) and 3, K7 at those up to NARROW_P: (P, max_pulses of
+# the lanes)
+SYSTEM_WIDTHS = ((1, 1), (2, 2), (3, 3), (4, 4), (5, 5), (10, 6), (12, 6))
+
+
+def system_bound(torch, name, args, out, P):
+    """K6's or K7's bound: its tensors read and written once; K6's
+    operations those of one system evaluation a lane, K7's the columns and
+    the products and sums."""
+    n, K = args[2].shape if name == "fused_system" else args[0].shape
+    M = 1 + 2 * P
+    nops = (n * ops_system(K, P) if name == "fused_system"
+            else n * K * (6 * P + M * (M + 1) + 2 * M + 5))
+    return bound(nbytes(*args, *out), nops)
+
+
+def check_systems(torch, cfg, cal, dev, records, card):
+    """K6 at P = 1-5, 10, 12 and K7 at P = 1..4 against their plain
+    versions at N = 69,120 lanes, bit-equal at both types. At P = 2 fp32
+    (and K6 at P = 12) each is timed as a wrapper call (CUDA events) and as
+    the kernel alone (the profiler's device time)."""
+    from npswf_tpu_torch.fit.eval_kernel import (fused_neq, fused_neq_plain,
+                                                 fused_system,
+                                                 fused_system_plain)
     n = cal.nblocks * E_BENCH
-    for P, max_pulses in ((2, 2), (4, 4), (12, 6)):
+    for P, max_pulses in SYSTEM_WIDTHS:
         for dt in (torch.float64, torch.float32):
-            (coeffs_pad, x0, y, w, u0, lo, hi, p_seed, pm, _, _, _, _) = \
-                lm_inputs(torch, cfg, cal, n, max_pulses, P, 41 + P, dt, dev)
-            rng = np.random.default_rng(51 + P)
-            u = u0 + torch.as_tensor(rng.uniform(-0.3, 0.3, tuple(u0.shape)),
-                                     dtype=dt, device=dev)
-            sys_args = (coeffs_pad, x0, y, w, u, lo, hi, p_seed, pm)
-            cases = [("K6", "fused_system",
+            sys_args, neq_args = system_inputs(torch, cfg, cal, n, P,
+                                               max_pulses, 41 + P, dt, dev)
+            cases = [("K6", "fused_system", sys_args,
                       lambda: fused_system(cfg, *sys_args),
                       lambda: fused_system_plain(cfg, *sys_args))]
-            if P <= 4:
-                pp = to_physical(u, lo, hi, p_seed, pm)
-                ev = fused_eval(cfg, coeffs_pad, x0, pp[:, 1::2], pp[:, 2::2],
-                                pp[:, 0], pm[:, 2::2])
-                dd = dp_du(u, lo, hi, pm)
-                cases.append(("K7", "fused_neq",
-                              lambda: fused_neq(cfg, y, w, *ev, dd),
-                              lambda: fused_neq_plain(cfg, y, w, *ev, dd)))
-            for tag, name, run_k, run_p in cases:
+            if neq_args is not None:
+                cases.append(("K7", "fused_neq", neq_args,
+                              lambda: fused_neq(cfg, *neq_args),
+                              lambda: fused_neq_plain(cfg, *neq_args)))
+            for tag, name, args, run_k, run_p in cases:
                 k, p = run_k(), run_p()
                 torch.cuda.synchronize()
-                ndiff = sum(int((x != y_).sum()) for x, y_ in zip(k, p))
-                rel = max(float(((x - y_).abs() / y_.abs().clamp(min=1e-30)).max())
-                          for x, y_ in zip(k, p))
-                err = max(float((x - y_).abs().max()) for x, y_ in zip(k, p))
+                ndiff = sum(n_unequal(torch, x, y_) for x, y_ in zip(k, p))
+                err = max_abs_diff(torch, zip(k, p))
                 say(tag, f"P={P} {dt}: {ndiff} values of A, g, chi2 differ "
-                         f"bitwise; max rel {rel:.3e}, max|d| {err:.3e}")
+                         f"bitwise; max|d| {err:.3e}")
                 check(all(bool(torch.isfinite(x).all()) for x in k),
                       f"{name} not finite")
-                check(rel <= (1e-12 if dt == torch.float64 else 1e-5),
-                      f"{name} off its band at P={P} {dt}")
-                if P == 2 and dt == torch.float32:
-                    M = 1 + 2 * P
-                    K = y.shape[1]
-                    if name == "fused_system":
-                        nb = nbytes(*sys_args) + nbytes(k[1], k[2]) \
-                            + (M * (M + 1) // 2) * n * 4
-                        nops = n * ops_system(K, P)
-                        lib_ms = None
+                check(ndiff == 0, f"{name} not bit-equal at P={P} {dt}")
+                if dt == torch.float32 and (P == 2 or (P == 12 and tag == "K6")):
+                    kname = "system_kernel" if tag == "K6" else "neq_kernel"
+                    t = dict(max_abs_err=err,
+                             ms=cuda_ms(torch, run_k, 20),
+                             kernel_ms=kernel_ms(torch, run_k, 20, kname),
+                             plain_ms=cuda_ms(torch, run_p, 3),
+                             **system_bound(torch, name, args, k, P))
+                    kms = ("not measured" if t["kernel_ms"] is None
+                           else f"{t['kernel_ms']:.4f} ms")
+                    say(tag, f"P={P} fp32, {n} lanes: wrapper {t['ms']:.4f} "
+                             f"ms, kernel alone {kms}, plain "
+                             f"{t['plain_ms']:.4f} ms, bound "
+                             f"{t['bound_ms']:.4f} ms ({t['bound_by']}) "
+                             f"({card})")
+                    if P == 2:
+                        if name == "fused_neq":
+                            t["library_ms"] = bmm_ms(torch, *args)
+                        else:
+                            t["library_ms"] = None
+                        records[name].update(t)
                     else:
-                        nb = nbytes(y, w, *ev, dd) + nbytes(k[1], k[2]) \
-                            + (M * (M + 1) // 2) * n * 4
-                        nops = n * K * (6 * P + M * (M + 1) + 2 * M + 5)
-                        # yardstick: one batched product of X = [Ju | r]
-                        # gives A, g and chi2 (the port never calls it)
-                        jp = torch.stack([ev[1], ev[2]], dim=2).reshape(n, 2 * P, K)
-                        cols = torch.cat([dd[:, :1, None].expand(n, 1, K),
-                                          jp * dd[:, 1:, None]], dim=1) * w[:, None, :]
-                        X = torch.cat([cols, ((y - ev[0]) * w)[:, None, :]],
-                                      dim=1).transpose(1, 2).contiguous()
-                        lib_ms = cuda_ms(torch, lambda: torch.bmm(X.mT, X), 20)
-                        del jp, cols, X
-                    records[name].update(
-                        max_abs_err=err,
-                        ms=cuda_ms(torch, run_k, 20),
-                        plain_ms=cuda_ms(torch, run_p, 3),
-                        library_ms=lib_ms, **bound(nb, nops))
+                        records[name]["p12"] = t
                 del k, p
-            del sys_args, cases
+            del sys_args, neq_args, cases
+
+
+def bmm_ms(torch, y, w, f, jt, ja, dd):
+    """Yardstick for K7: one batched product of X = [Ju | r] gives A, g and
+    chi2 (the port never calls it)."""
+    n, P, K = jt.shape
+    jp = torch.stack([jt, ja], dim=2).reshape(n, 2 * P, K)
+    cols = torch.cat([dd[:, :1, None].expand(n, 1, K),
+                      jp * dd[:, 1:, None]], dim=1) * w[:, None, :]
+    X = torch.cat([cols, ((y - f) * w)[:, None, :]],
+                  dim=1).transpose(1, 2).contiguous()
+    return cuda_ms(torch, lambda: torch.bmm(X.mT, X), 20)
 
 
 # ---------------------------------------------------------------------
@@ -726,6 +796,111 @@ def small_reference(torch, dev, flags):
     check(bool(torch.allclose(k.wftime, p.wftime, rtol=1e-9, atol=1e-9)),
           f"small fp64 wftime differs under {flags}")
     return int(k.fit_converged.sum())
+
+
+# ---------------------------------------------------------------------
+# the fit buckets: every width the configurations below route lanes to
+# ---------------------------------------------------------------------
+# NPSConfig changes and the bucket widths that must carry lanes of the
+# pileup-heavy batch. The search emits at most 4 pulses a block on the
+# reference template (core/config.py, pallas_lm_max_pulses), so the bucket
+# bounds, not the batch, send lanes to the wide widths.
+BUCKET_CONFIGS = (
+    ({}, (2, 4)),
+    (dict(fit_small_pulses=1, fit_mid_pulses=2), (1, 2, 12)),
+    (dict(fit_small_pulses=1, fit_mid_pulses=5), (1, 5)),
+    (dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=10), (2, 10)),
+)
+# route -> the kernel that solves each bucket on it
+BUCKET_ROUTES = {"default": "lm_solve", "fused_system": "fused_system"}
+
+
+def run_buckets(torch, cfg, calib, batch):
+    """process_batch with each bucket's fit counted: per bucket (in the
+    pipeline's order) its width, active lanes, failed fits and the kernel
+    launches of its fit."""
+    from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.engine import pipeline
+    fit = pipeline.fit_waveforms
+    rows = []
+
+    def counted(cfg_, inp, *args, **kw):
+        before = dict(kernels.launches)
+        res = fit(cfg_, inp, *args, **kw)
+        rows.append({"P": int(inp.t_seed.shape[1]),
+                     "lanes": int(inp.active.sum()),
+                     "failed": int((inp.active & ~res.converged).sum()),
+                     "launches": {k: v - before.get(k, 0)
+                                  for k, v in kernels.launches.items()
+                                  if v > before.get(k, 0)}})
+        return res
+    pipeline.fit_waveforms = counted
+    try:
+        kernels.reset_counts()
+        out = pipeline.process_batch(cfg, calib, batch)
+        torch.cuda.synchronize()
+    finally:
+        pipeline.fit_waveforms = fit
+    return out, rows, dict(kernels.plain_calls)
+
+
+def check_buckets(torch, dev, card):
+    """The [buckets] phase: a 64-event batch of bench shape with up to 4
+    pulses a block and pileup 0.9 through process_batch under each of
+    BUCKET_CONFIGS, on the default route (K3) and on use_fused_system (K6):
+    every named width carries lanes and is solved by its kernel, no plain
+    call, and wfnpulse, gate and fit_converged equal the plain path's on
+    the card."""
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
+    from npswf_tpu_torch.engine.pipeline import process_batch
+    from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
+    from npswf_tpu_torch.utils.synthetic import make_events
+    base = NPSConfig(compute_dtype="float32")
+    cal = synthetic_calibration(base, seed=1)
+    truth = make_events(base, cal, E_BENCH, occupancy=1.0, max_pulses=4,
+                        pileup_prob=0.9, seed=13)
+    corr = np.random.default_rng(11).uniform(-2, 2, E_BENCH).astype(np.float32)
+    batch = batch_to_torch(truth.signal.astype(np.float32), truth.pres, corr,
+                           dev, torch.float32)
+    calib = calib_to_torch(cal.device_arrays(base), dev, torch.float32)
+    E, B, _ = batch.signal.shape
+    summary = []
+    for changes, widths in BUCKET_CONFIGS:
+        for route, kernel in BUCKET_ROUTES.items():
+            cfg = base.replace(**changes, **ROUTE_FLAGS[route])
+            tag = f"{route} {changes or 'NPSConfig()'}"
+            t0 = time.perf_counter()
+            out, rows, plain = run_buckets(torch, cfg, calib, batch)
+            ms = (time.perf_counter() - t0) * 1e3
+            ref = process_batch(cfg, calib, batch, plain=True)
+            diff = {f: int((getattr(out, f) != getattr(ref, f)).sum())
+                    for f in ("wfnpulse", "gate", "fit_converged")}
+            n_fail = int(out.n_fit_failure)
+            rate = n_fail / max(int(out.n_fit_success) + n_fail, 1)
+            for r in rows:
+                say("buckets", f"{tag}: P={r['P']}: {r['lanes']} lanes, "
+                               f"{r['failed']} failed "
+                               f"({r['failed'] / max(r['lanes'], 1):.4%}), "
+                               f"launches {r['launches']}")
+            say("buckets", f"{tag}: {ms:.1f} ms, failure rate {rate:.4%}; "
+                           f"against the plain path on the card, values "
+                           f"differing {diff} of {E * B} ({card})")
+            check(not plain, f"[buckets] {tag}: plain versions ran: {plain}")
+            check(not any(diff.values()), f"[buckets] {tag}: differs from "
+                                          f"the plain path: {diff}")
+            carried = {r["P"] for r in rows if r["lanes"] > 0}
+            check(set(widths) <= carried, f"[buckets] {tag}: widths "
+                                          f"{sorted(set(widths) - carried)} "
+                                          f"carried no lanes")
+            for r in rows:
+                check(r["lanes"] == 0 or r["launches"].get(kernel, 0) > 0,
+                      f"[buckets] {tag}: P={r['P']} not solved by {kernel}")
+            summary.append({"route": route, "changes": changes, "ms": ms,
+                            "failure_rate": rate, "buckets": rows,
+                            "differ_from_plain": diff})
+    return summary
 
 
 # ---------------------------------------------------------------------
@@ -1062,6 +1237,37 @@ def check_cli(card):
     say("cli", f"synth -> run on the card -> validate: index OK ({card})")
 
 
+def time_systems(torch, card):
+    """K6 at P = 2 and 12 and K7 at P = 2, fp32, N = 69,120, as a wrapper
+    call (CUDA events) and as the kernel alone (the profiler's device
+    time), for whichever package the path finds first: run it once for
+    each of two checkouts, in turns, to compare them on one card."""
+    from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.fit.eval_kernel import fused_neq, fused_system
+    cfg = NPSConfig(compute_dtype="float32")
+    cal = synthetic_calibration(cfg, seed=1)
+    kernels.library()
+    n = cal.nblocks * E_BENCH
+    res = {}
+    for P, max_pulses in ((2, 2), (12, 6)):
+        sys_args, neq_args = system_inputs(torch, cfg, cal, n, P, max_pulses,
+                                           41 + P, torch.float32,
+                                           torch.device("cuda", 0))
+        calls = [("fused_system", "system_kernel",
+                  lambda: fused_system(cfg, *sys_args))]
+        if neq_args is not None:
+            calls.append(("fused_neq", "neq_kernel",
+                          lambda: fused_neq(cfg, *neq_args)))
+        for name, kname, fn in calls:
+            res[f"{name} P={P}"] = {"ms": cuda_ms(torch, fn, 20),
+                                    "kernel_ms": kernel_ms(torch, fn, 20, kname)}
+    print(json.dumps({"time_systems": res, "package": kernels.__file__,
+                      "card": card}))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1075,6 +1281,11 @@ def main() -> int:
         print("chip_smoke: run it from the repository (npswf_tpu_torch/ missing)",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--time-systems"]:
+        # python3 chip_smoke.py --time-systems ROOT: the package of the
+        # checkout at ROOT (built there)
+        sys.path.insert(0, os.path.abspath(sys.argv[2]))
+        return time_systems(torch, card_line())
     sys.path.insert(0, REPO)
     try:
         return run(torch)
@@ -1084,6 +1295,7 @@ def main() -> int:
 
 
 def run(torch) -> int:
+    t_start = time.perf_counter()
     from npswf_tpu_torch import kernels
     from npswf_tpu_torch.core.calibration import synthetic_calibration
     from npswf_tpu_torch.core.config import NPSConfig
@@ -1127,7 +1339,7 @@ def run(torch) -> int:
     check_lm(torch, cfg, cal, dev, records)
     check_lm_retry(torch, cfg, cal, dev)
     check_fused_eval(torch, cfg, cal, dev, records)
-    check_systems(torch, cfg, cal, dev, records)
+    check_systems(torch, cfg, cal, dev, records, card)
     for route, flags in ROUTE_FLAGS.items():
         n_conv = small_reference(torch, dev, flags)
         say("reference", f"{route}: small fp64 batch, decisions equal to the "
@@ -1146,6 +1358,9 @@ def run(torch) -> int:
         records[name]["launches"] = route_launches[route].get(name, 0)
     time_lm_launches(torch, cfg, calib, batch, records, card)
     del default_out, out, truth, batch
+    t0 = time.perf_counter()
+    buckets = check_buckets(torch, dev, card)
+    say("buckets", f"phase done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. the segment executor and the CLI -----------------------------
     segment = check_segments(torch, dev, card, route_ms["default"], records)
@@ -1163,6 +1378,8 @@ def run(torch) -> int:
                      f"its route ({card})")
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"segment": segment}))
+    print(json.dumps({"buckets": buckets}))
+    say("done", f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

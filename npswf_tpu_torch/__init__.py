@@ -32,8 +32,9 @@ mirrors its layout and names so each counterpart is easy to find:
 - ``csrc``         — the hand-written Hopper kernels: matched filter
                      (``matched_filter.cu``), peak search up to its sort
                      operands or its top-P slots (``search.cu``), the
-                     whole-loop LM stage (``lm.cu``) and the generic loop's
-                     system evaluations (``eval.cu``)
+                     whole-loop LM stage (``lm.cuh``; ``lm.cu`` dispatches
+                     to its widths, compiled in groups in ``lm_p*.cu``) and
+                     the generic loop's system evaluations (``eval.cu``)
 
 It imports torch and numpy, never jax and nothing of ``npswf_tpu``: the
 host layer it needs is copied, and ``tests/test_torch_host.py`` pins each

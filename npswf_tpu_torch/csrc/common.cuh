@@ -1,9 +1,11 @@
 // Shared helpers for the port's hand-written kernels.
 //
 // A lane is one event x block waveform. K1 runs a block a tile of lanes,
-// one thread a (lane, output bin); K2/K4 (search.cu) and K3 (lm.cu) run a
+// one thread a (lane, output bin); K2/K4 (search.cu) and K3 (lm.cuh) run a
 // team of threads per lane (K2/K4 a tile of lanes a block, K3 one warp a
-// block); K5-K7 run one thread per lane (K5 one per lane and fit bin).
+// block); K5 runs one thread per lane and fit bin; K6/K7 (eval.cu) a tile
+// of lanes a block, one thread a (lane, bin), then one owner thread a block
+// of sums.
 // Every kernel is compiled with -fmad=false: each multiply and add rounds on
 // its own, as in the plain PyTorch versions the kernels are held against.
 #pragma once
@@ -14,13 +16,11 @@
 
 namespace npswf {
 
-constexpr int kBlock = 128;  // threads per block of the thread-per-lane kernels
+constexpr int kBlock = 128;  // threads per block of K5
 
 // dtype codes passed from the ctypes wrappers
 constexpr int kFloat32 = 0;
 constexpr int kFloat64 = 1;
-
-inline int grid_for(int n) { return (n + kBlock - 1) / kBlock; }
 
 // max that propagates NaN, as jnp.max / torch.amax do
 template <typename T>
@@ -68,6 +68,57 @@ __device__ __forceinline__ void load_span(const T* __restrict__ g, int count,
     done = nv * kv;
   }
   for (int i = done + threadIdx.x; i < count; i += blockDim.x) put(i, g[i]);
+}
+
+// Asynchronous copies from device to shared memory (cp.async): a thread
+// issues all of its copies before it waits for any, so the block keeps
+// many loads in flight. N = 4, 8 or 16 bytes; wait with cp_async_wait_all()
+// and then __syncthreads().
+template <int N>
+__device__ __forceinline__ void cp_async(void* s, const void* g) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(sa),
+               "l"(g), "n"(N));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The block copies ``count`` contiguous values from g to s: 16 bytes a copy
+// where g and s are equally aligned, neighbouring threads on neighbouring
+// addresses, single values at the ends (or throughout when they are not).
+template <typename T>
+__device__ __forceinline__ void copy_span_async(T* s, const T* g, int count) {
+  constexpr int kv = 16 / sizeof(T);
+  const uintptr_t ga = reinterpret_cast<uintptr_t>(g);
+  const uintptr_t sa = reinterpret_cast<uintptr_t>(s);
+  int head = count, nv = 0;
+  if (((ga ^ sa) & 15) == 0) {
+    head = min(count, (int)(((16 - (ga & 15)) & 15) / sizeof(T)));
+    nv = (count - head) / kv;
+  }
+  for (int i = threadIdx.x; i < nv; i += blockDim.x)
+    cp_async<16>(s + head + i * kv, g + head + i * kv);
+  for (int i = threadIdx.x; i < head; i += blockDim.x)
+    cp_async<sizeof(T)>(s + i, g + i);
+  for (int i = head + nv * kv + threadIdx.x; i < count; i += blockDim.x)
+    cp_async<sizeof(T)>(s + i, g + i);
+}
+
+// ``rows`` rows of k values, ``ld`` values apart in device memory, to
+// s [rows, k]: one span when they are contiguous, else value by value.
+template <typename T>
+__device__ __forceinline__ void copy_rows_async(T* s, const T* g, long long ld,
+                                                int rows, int k) {
+  if (ld == k) {
+    copy_span_async(s, g, rows * k);
+    return;
+  }
+  for (int i = threadIdx.x; i < rows * k; i += blockDim.x) {
+    const int r = i / k;
+    cp_async<sizeof(T)>(s + i, g + r * ld + (i - r * k));
+  }
 }
 
 // Raise a kernel's dynamic shared memory limit to `bytes` when that is above

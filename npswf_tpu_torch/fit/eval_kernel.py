@@ -20,7 +20,6 @@ bit for bit. The module also holds the segment-plane layout (PAD, SEG,
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -156,24 +155,31 @@ def fused_system_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u, lo, hi,
 # ---------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------
-@functools.lru_cache(maxsize=None)
-def _tri_index(M: int, device: torch.device) -> torch.Tensor:
-    """Row-major (i, j) -> packed upper-triangle position, [M * M]."""
-    tri, pos = [[0] * M for _ in range(M)], 0
-    for i in range(M):
-        for j in range(i, M):
-            tri[i][j] = tri[j][i] = pos
-            pos += 1
-    return torch.tensor([tri[i][j] for i in range(M) for j in range(M)],
-                        device=device)
+def _rows(t: torch.Tensor, name: str, N: int, K: int, dtype, device):
+    """An [N, K] operand as the K6/K7 kernels read it: rows of K contiguous
+    values, any row stride (y is a window of the signal rows); copied only
+    when its values are not contiguous within a row."""
+    if tuple(t.shape) != (N, K) or t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name} must be [{N}, {K}] {dtype} on {device}")
+    if (K > 1 and t.stride(1) != 1) or (N > 1 and t.stride(0) < K):
+        t = t.contiguous()
+    return t
 
 
-def _unpack(out: torch.Tensor, M: int):
-    """[MT + M + 1, N] lanes-minor kernel output -> (A [N,M,M] symmetric,
-    g [N,M], chi2 [N])."""
-    N, MT = out.shape[1], M * (M + 1) // 2
-    A = out.index_select(0, _tri_index(M, out.device)).t().reshape(N, M, M)
-    return A, out[MT:MT + M].t(), out[MT + M]
+def _mask_bytes(mask: torch.Tensor) -> torch.Tensor:
+    """A bool or uint8 mask as the kernels read it (one byte a value)."""
+    mask = mask.contiguous()
+    return mask if mask.dtype in (torch.bool, torch.uint8) else mask.to(torch.uint8)
+
+
+def _system_outputs(N: int, M: int, dtype, device):
+    return (torch.empty((N, M, M), dtype=dtype, device=device),
+            torch.empty((N, M), dtype=dtype, device=device),
+            torch.empty((N,), dtype=dtype, device=device))
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
 
 
 def fused_eval(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
@@ -196,7 +202,7 @@ def fused_eval(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
     kernels.require(ap, "a_par", (N, P), dt, dev)
     pd = ped.contiguous()
     kernels.require(pd, "ped", (N,), dt, dev)
-    mask = pulse_mask.to(torch.uint8).contiguous()
+    mask = _mask_bytes(pulse_mask)
     f = torch.empty((N, K), dtype=dt, device=dev)
     jt = torch.empty((N, P, K), dtype=dt, device=dev)
     ja = torch.empty((N, P, K), dtype=dt, device=dev)
@@ -217,7 +223,8 @@ def fused_neq(cfg: NPSConfig, y: torch.Tensor, w: torch.Tensor,
               f: torch.Tensor, jt: torch.Tensor, ja: torch.Tensor,
               dpdu: torch.Tensor):
     """y/w/f [N,K], jt/ja [N,P,K], dpdu [N,M] -> (A [N,M,M], g [N,M],
-    chi2 [N]); P <= NARROW_P."""
+    chi2 [N]); P <= NARROW_P. On the card: one launch, the outputs written
+    in place by the kernel."""
     if not y.is_cuda:
         return fused_neq_plain(cfg, y, w, f, jt, ja, dpdu)
     N, P, K = jt.shape
@@ -225,26 +232,21 @@ def fused_neq(cfg: NPSConfig, y: torch.Tensor, w: torch.Tensor,
     dev, dt = y.device, y.dtype
     if not 1 <= P <= NARROW_P:
         raise ValueError(f"fused_neq kernel takes 1..{NARROW_P} pulses, not {P}")
-    for name, t in (("y", y), ("w", w), ("f", f)):
-        if tuple(t.shape) != (N, K) or t.dtype != dt or t.device != dev:
-            raise ValueError(f"{name} must be [{N}, {K}] {dt} on {dev}")
+    y, w, f = (_rows(t, name, N, K, dt, dev)
+               for name, t in (("y", y), ("w", w), ("f", f)))
     kernels.require(jt, "jt", (N, P, K), dt, dev)
     kernels.require(ja, "ja", (N, P, K), dt, dev)
     dpdu = dpdu.contiguous()
     kernels.require(dpdu, "dpdu", (N, M), dt, dev)
-    out = torch.empty((M * (M + 1) // 2 + M + 1, N), dtype=dt, device=dev)
+    outs = _system_outputs(N, M, dt, dev)
     if N == 0:
-        return _unpack(out, M)
-    # lanes-minor fit data: a warp's loads of one fit bin coalesce
-    ins = (y.t().contiguous(), w.t().contiguous(), f.t().contiguous(), jt, ja,
-           dpdu)
-    ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+        return outs
     code = kernels.library().npswf_fused_neq(
-        kernels.dtype_code(dt), P, ptrs, out.data_ptr(), N, K,
-        kernels.stream_ptr(dev))
+        kernels.dtype_code(dt), P, _ptrs((y, w, f, jt, ja, dpdu)), _ptrs(outs),
+        N, K, y.stride(0), w.stride(0), f.stride(0), kernels.stream_ptr(dev))
     kernels.check(code, kernels.FUSED_NEQ)
     kernels.count_launch(kernels.FUSED_NEQ)
-    return _unpack(out, M)
+    return outs
 
 
 def fused_system(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
@@ -252,7 +254,9 @@ def fused_system(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
                  lo: torch.Tensor, hi: torch.Tensor, p_seed: torch.Tensor,
                  param_mask: torch.Tensor):
     """coeffs_pad [N,4,SEG], x0 [N], y/w [N,K] (w = 1/sigma), u/lo/hi/
-    p_seed/param_mask [N,M] -> (A [N,M,M], g [N,M], chi2 [N])."""
+    p_seed/param_mask [N,M] -> (A [N,M,M], g [N,M], chi2 [N]). On the card:
+    one launch for any pulse count whose tile fits in shared memory, the
+    outputs written in place by the kernel."""
     if not u.is_cuda:
         return fused_system_plain(cfg, coeffs_pad, x0, y, w, u, lo, hi,
                                   p_seed, param_mask)
@@ -261,28 +265,26 @@ def fused_system(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
     K = y.shape[1]
     dev, dt = u.device, u.dtype
     lib = kernels.library()
-    if M != 1 + 2 * P or not lib.npswf_system_supported(P):
-        raise ValueError(f"fused_system kernel has no instantiation for {P} "
-                         f"pulses (M = {M})")
+    if M != 1 + 2 * P or not lib.npswf_system_supported(P, K):
+        raise ValueError(f"fused_system kernel: a tile of one lane at {P} "
+                         f"pulses (M = {M}) over {K} fit bins does not fit "
+                         f"a block")
     kernels.require(coeffs_pad, "coeffs_pad", (N, 4, SEG), dt, dev)
     kernels.require(x0, "x0", (N,), dt, dev)
     u = u.contiguous()
     for name, t in (("u", u), ("lo", lo), ("hi", hi), ("p_seed", p_seed)):
         kernels.require(t, name, (N, M), dt, dev)
-    for name, t in (("y", y), ("w", w)):
-        if tuple(t.shape) != (N, K) or t.dtype != dt or t.device != dev:
-            raise ValueError(f"{name} must be [{N}, {K}] {dt} on {dev}")
-    if tuple(param_mask.shape) != (N, M):
-        raise ValueError("param_mask must be [N, M]")
-    out = torch.empty((M * (M + 1) // 2 + M + 1, N), dtype=dt, device=dev)
+    y, w = _rows(y, "y", N, K, dt, dev), _rows(w, "w", N, K, dt, dev)
+    if tuple(param_mask.shape) != (N, M) or param_mask.device != dev:
+        raise ValueError(f"param_mask must be [{N}, {M}] on {dev}")
+    outs = _system_outputs(N, M, dt, dev)
     if N == 0:
-        return _unpack(out, M)
-    ins = (coeffs_pad, x0, y.t().contiguous(), w.t().contiguous(), u, lo, hi,
-           p_seed, param_mask.to(torch.uint8).contiguous())
-    ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
+        return outs
+    ins = (coeffs_pad, x0, y, w, u, lo, hi, p_seed, _mask_bytes(param_mask))
     code = lib.npswf_fused_system(
-        kernels.dtype_code(dt), P, ptrs, out.data_ptr(), N, K, cfg.fit_lo_bin,
-        float(cfg.spline_gate_lo), float(cfg.ntime - 1), kernels.stream_ptr(dev))
+        kernels.dtype_code(dt), P, _ptrs(ins), _ptrs(outs), N, K, y.stride(0),
+        w.stride(0), cfg.fit_lo_bin, float(cfg.spline_gate_lo),
+        float(cfg.ntime - 1), kernels.stream_ptr(dev))
     kernels.check(code, kernels.FUSED_SYSTEM)
     kernels.count_launch(kernels.FUSED_SYSTEM)
-    return _unpack(out, M)
+    return outs

@@ -1,4 +1,4 @@
-"""K3 wrapper: one whole LM stage per lane on the card (csrc/lm.cu).
+"""K3 wrapper: one whole LM stage per lane on the card (csrc/lm.cuh, lm.cu).
 
 Replaces npswf_tpu/fit/pallas_lm.py::_lm_kernel (wrappers ``_lm_call`` and
 ``lm_solve_pallas``), with the signature and return of
@@ -16,6 +16,11 @@ from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch import kernels
 from npswf_tpu_torch.fit.eval_kernel import SEG, system_plain_body
 from npswf_tpu_torch.fit.lm import CHOL_EPS, SAT_THRESH, lm_loop
+
+# The widest pulse count K3 is compiled for (csrc/lm.cuh, kMaxP): its team of
+# 32 threads holds one row of the M x M system a thread, and each width is
+# its own instantiation; 12 is the default pallas_lm_max_pulses.
+LM_MAX_PULSES = 12
 
 
 def lm_solve_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
@@ -56,8 +61,8 @@ def lm_solve_kernel(cfg: NPSConfig, coeffs_pad: torch.Tensor,
     K = y.shape[1]
     lib = kernels.library()
     if M != 1 + 2 * P or not lib.npswf_lm_supported(P):
-        raise ValueError(f"LM kernel has no instantiation for {P} pulses "
-                         f"(M = {M})")
+        raise ValueError(f"LM kernel takes 1..{LM_MAX_PULSES} pulses (one "
+                         f"instantiation a width), not {P} (M = {M})")
     kernels.require(coeffs_pad, "coeffs_pad", (N, 4, SEG), dt, dev)
     kernels.require(x0, "x0", (N,), dt, dev)
     for name, t in (("u0", u0), ("lo", lo), ("hi", hi), ("p_seed", p_seed)):
@@ -72,7 +77,7 @@ def lm_solve_kernel(cfg: NPSConfig, coeffs_pad: torch.Tensor,
     budget = torch.clamp(iter_budget.to(device=dev, dtype=torch.int32),
                          max=max_iter).contiguous()
     lam0_t = (torch.zeros((N,), dtype=dt, device=dev) + lam0).contiguous()
-    # lanes-minor fit data ([K, N], as K6 reads it); each lane's team stages
+    # lanes-minor fit data ([K, N]); each lane's team stages
     # its own bins into shared memory once
     yt = y.t().contiguous()
     wt = w.t().contiguous()

@@ -92,7 +92,7 @@ def test_fused_eval_matches_jax(cfg, cal, P):
     assert (ours[2].numpy() != 0).any()
 
 
-@pytest.mark.parametrize("P", [2, 4, 12])
+@pytest.mark.parametrize("P", [1, 2, 4, 5, 10, 12])
 def test_fused_system_matches_jax(cfg, cal, P):
     inp, u, lo, hi, p_seed, pm = _system_inputs(cfg, cal, P)
     w = 1.0 / inp.sigma
@@ -104,7 +104,7 @@ def test_fused_system_matches_jax(cfg, cal, P):
     _assert_system_close(ours, ref)
 
 
-@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
 def test_fused_neq_matches_jax(cfg, cal, P):
     """K7 on K5's outputs, each package on its own K5."""
     inp, u, lo, hi, p_seed, pm = _system_inputs(cfg, cal, P, seed=10)

@@ -215,7 +215,8 @@ def test_cuda_tensors_launch_the_kernels(card, dtype, route):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 33, 257])
-@pytest.mark.parametrize("P,max_pulses", [(1, 1), (2, 2), (12, 6)])
+@pytest.mark.parametrize("P,max_pulses", [(1, 1), (2, 2), (5, 5), (10, 6),
+                                          (12, 6)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_lm_kernel_bit_equal_to_plain(card, dtype, P, max_pulses, n):
     """K3 against its plain version on retry-shaped calls (stage-2 cap,
@@ -231,6 +232,80 @@ def test_lm_kernel_bit_equal_to_plain(card, dtype, P, max_pulses, n):
     p = lm_solve_plain(cfg, *args)
     torch.cuda.synchronize()
     assert lm_equal(torch, k, p) == n
+
+
+def _system_cases(n, P, max_pulses, dtype, dev):
+    """K6's and, for P <= NARROW_P, K7's calls on n lanes:
+    [(kernel name, kernel call, plain call)]."""
+    from chip_smoke import system_inputs
+    from npswf_tpu_torch.fit.eval_kernel import (fused_neq, fused_neq_plain,
+                                                 fused_system,
+                                                 fused_system_plain)
+    cfg = NPSConfig(compute_dtype="float32")
+    cal = synthetic_calibration(cfg, seed=1)
+    sys_args, neq_args = system_inputs(torch, cfg, cal, n, P, max_pulses,
+                                       81 + n + P, dtype, dev)
+    cases = [("system_kernel", lambda: fused_system(cfg, *sys_args),
+              lambda: fused_system_plain(cfg, *sys_args))]
+    if neq_args is not None:
+        cases.append(("neq_kernel", lambda: fused_neq(cfg, *neq_args),
+                      lambda: fused_neq_plain(cfg, *neq_args)))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 257])
+@pytest.mark.parametrize("P,max_pulses", [(1, 1), (2, 2), (3, 3), (4, 4),
+                                          (5, 5), (10, 6), (12, 6)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_system_kernels_bit_equal_to_plain(card, dtype, P, max_pulses, n):
+    """K6 (every width here) and K7 (P <= 4) against their plain versions
+    on lane counts that leave a ragged last tile: A, g and chi2 equal, value
+    for value."""
+    from chip_smoke import n_unequal
+    for _, run_k, run_p in _system_cases(n, P, max_pulses, dtype, card):
+        k, p = run_k(), run_p()
+        torch.cuda.synchronize()
+        assert [n_unequal(torch, x, y) for x, y in zip(k, p)] == [0, 0, 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,max_pulses", [(2, 2), (12, 6)])
+def test_system_kernels_launch_once(card, P, max_pulses):
+    """A K6 or K7 call on the card is one device activity, its kernel: no
+    transpose, no unpack gather, no copy of the inputs."""
+    from chip_smoke import device_activities
+    for name, run_k, _ in _system_cases(257, P, max_pulses, torch.float32,
+                                        card):
+        run_k()
+        acts = device_activities(torch, run_k)
+        assert len(acts) == 1 and name in acts[0], acts
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_widths_they_do_not_take(card):
+    """K3 is compiled for 1..12 pulses and K6 takes a width while one
+    lane's tile fits a block (61 at K = 90): wider calls raise before any
+    launch."""
+    from npswf_tpu_torch.fit.eval_kernel import SEG, fused_system
+    from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel
+    cfg = NPSConfig()
+    N, K = 2, cfg.nfitbins
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.float64, device=card)
+    for P, run in ((13, "lm"), (62, "system")):
+        M = 1 + 2 * P
+        mask = torch.ones((N, M), dtype=torch.bool, device=card)
+        args = (z(N, 4, SEG), z(N), z(N, K), z(N, K), z(N, M), z(N, M),
+                z(N, M), z(N, M), mask)
+        kernels.reset_counts()
+        with pytest.raises(ValueError, match="1..12" if run == "lm" else "tile"):
+            if run == "lm":
+                lm_solve_kernel(cfg, *args, mask[:, 0], 10, 1e-3)
+            else:
+                fused_system(cfg, *args)
+        assert not kernels.launches
 
 
 def test_fp32_division_through_fp64_reciprocal():

@@ -81,6 +81,29 @@ def test_process_batch_matches_jax_fp64(cfg3, small_cal):
     _assert_fp64_match(ours, ref)
 
 
+# bucket bounds that send lanes to widths outside the defaults' 2, 4 and 12:
+# (config changes, the bucket widths, the pulse counts each bucket takes)
+BUCKET_WIDTHS = {
+    "mid5": (dict(fit_small_pulses=1, fit_mid_pulses=5), ((1, 1, 1), (5, 2, 5))),
+    "wide10": (dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=10),
+               ((2, 1, 2), (10, 3, 10))),
+}
+
+
+@pytest.mark.parametrize("case", list(BUCKET_WIDTHS))
+def test_process_batch_bucket_widths_match_jax_fp64(small_cfg, small_cal, case):
+    """Buckets of width 5 and 10 (a middle bound of 5; the wide bucket at
+    maxwfpulses=10) carry lanes, and the default route matches the JAX
+    package: decisions and counters exact, floats to 1e-9 relative."""
+    changes, buckets = BUCKET_WIDTHS[case]
+    ours, ref = _run_both(small_cfg.replace(**changes), small_cal, torch.float64)
+    n = ours["wfnpulse"][ours["gate"]]
+    for width, lo, hi in buckets:
+        assert ((n >= lo) & (n <= hi)).any(), f"bucket of width {width} empty"
+    assert ours["fit_converged"].sum() >= 30
+    _assert_fp64_match(ours, ref)
+
+
 SLICE = dict(use_pallas_lm=False, pallas_search_select=True)
 
 
