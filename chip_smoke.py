@@ -21,9 +21,18 @@ packet, the present-lane upload), once plain and once in chains of 4, and
 held to those of its batches run alone (plus the batches its dense
 fallback reran), the file's checks, the packet path against the dense path
 on the first two batches, the stage medians; then the CLI (synth, run, validate) in a
-subprocess. It prints one JSON line of kernel records (times, launches,
-bounds), one of the segment runs, one of the buckets, the card's name and
-power limit, and a last JSON line ``{"ok": true, "device": {...}}``. Any
+subprocess. The ``[models]`` phase fits the dense batch with the gaussian
+and biexp families (K1 and K2, then the generic loop in plain PyTorch),
+against the plain path, timed, and a batch of true gaussian pulses against
+its truth; ``[k3-wide]`` holds K3 at 13-15 pulses to its plain version and
+runs a pileup batch whose widest bucket is 15 pulses; ``[tools]`` runs the
+CLI's parity, extract-templates (then run with the extracted calibration),
+solver-audit and cpu-baseline in subprocesses, and the audit's fit in
+process with its launches counted. It prints one JSON line of kernel
+records (times, launches, bounds), one each of the segment runs, the
+buckets, the model families, K3's wide widths and the tools, the card's
+name and power limit, and a last JSON line ``{"ok": true, "device":
+{...}}``. Any
 failed phase exits non-zero. It imports no jax. Without a CUDA device, or
 outside the repository, it exits non-zero and prints no result.
 
@@ -58,6 +67,18 @@ SEG_CHUNK = 64
 SEG_BATCH = 64
 SEG_CHAIN = 4
 CLI_EVENTS = 32
+# [models]: the families and their shape constants (tests/test_models.py)
+MODEL_FAMILIES = {"gaussian": (("width", 3.5),),
+                  "biexp": (("tau_r", 1.8), ("tau_d", 9.0))}
+# [k3-wide]: (P, most pulses a lane) of the kernel checks, their lane
+# count, and the bucket bounds that send 3-4 pulse lanes to width 15
+WIDE_WIDTHS = ((13, 13), (14, 7), (15, 15))
+WIDE_LANES = 4096
+WIDE_BUCKETS = dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=15,
+                    pallas_lm_max_pulses=15)
+# [tools]: events of the extraction segment and of each audit ensemble
+EXTRACT_EVENTS = 16
+AUDIT_EVENTS = 1
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 outside the
 # tensor cores in operations/s
 MEM_RATE = 3.35e12
@@ -844,18 +865,12 @@ def run_buckets(torch, cfg, calib, batch):
     return out, rows, dict(kernels.plain_calls)
 
 
-def check_buckets(torch, dev, card):
-    """The [buckets] phase: a 64-event batch of bench shape with up to 4
-    pulses a block and pileup 0.9 through process_batch under each of
-    BUCKET_CONFIGS, on the default route (K3) and on use_fused_system (K6):
-    every named width carries lanes and is solved by its kernel, no plain
-    call, and wfnpulse, gate and fit_converged equal the plain path's on
-    the card."""
+def pileup_batch(torch, dev):
+    """A 64-event batch of bench shape with up to 4 pulses a block and
+    pileup 0.9 (seed 13), fp32: (NPSConfig, calibration tensors, batch)."""
     from npswf_tpu_torch.core.calibration import synthetic_calibration
     from npswf_tpu_torch.core.config import NPSConfig
     from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
-    from npswf_tpu_torch.engine.pipeline import process_batch
-    from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
     from npswf_tpu_torch.utils.synthetic import make_events
     base = NPSConfig(compute_dtype="float32")
     cal = synthetic_calibration(base, seed=1)
@@ -864,42 +879,60 @@ def check_buckets(torch, dev, card):
     corr = np.random.default_rng(11).uniform(-2, 2, E_BENCH).astype(np.float32)
     batch = batch_to_torch(truth.signal.astype(np.float32), truth.pres, corr,
                            dev, torch.float32)
-    calib = calib_to_torch(cal.device_arrays(base), dev, torch.float32)
+    return base, calib_to_torch(cal.device_arrays(base), dev, torch.float32), batch
+
+
+def check_bucket_run(torch, phase, tag, cfg, calib, batch, widths, kernel,
+                     card):
+    """One bucket configuration through run_buckets: every named width
+    carries lanes and is solved by ``kernel``, no plain call, and wfnpulse,
+    gate and fit_converged equal the plain path's on the card."""
+    from npswf_tpu_torch.engine.pipeline import process_batch
     E, B, _ = batch.signal.shape
+    t0 = time.perf_counter()
+    out, rows, plain = run_buckets(torch, cfg, calib, batch)
+    ms = (time.perf_counter() - t0) * 1e3
+    ref = process_batch(cfg, calib, batch, plain=True)
+    diff = {f: int((getattr(out, f) != getattr(ref, f)).sum())
+            for f in ("wfnpulse", "gate", "fit_converged")}
+    n_fail = int(out.n_fit_failure)
+    rate = n_fail / max(int(out.n_fit_success) + n_fail, 1)
+    for r in rows:
+        say(phase, f"{tag}: P={r['P']}: {r['lanes']} lanes, "
+                   f"{r['failed']} failed "
+                   f"({r['failed'] / max(r['lanes'], 1):.4%}), "
+                   f"launches {r['launches']}")
+    say(phase, f"{tag}: {ms:.1f} ms, failure rate {rate:.4%}; against the "
+               f"plain path on the card, values differing {diff} of "
+               f"{E * B} ({card})")
+    check(not plain, f"[{phase}] {tag}: plain versions ran: {plain}")
+    check(not any(diff.values()), f"[{phase}] {tag}: differs from the plain "
+                                  f"path: {diff}")
+    carried = {r["P"] for r in rows if r["lanes"] > 0}
+    check(set(widths) <= carried, f"[{phase}] {tag}: widths "
+                                  f"{sorted(set(widths) - carried)} carried "
+                                  f"no lanes")
+    for r in rows:
+        check(r["lanes"] == 0 or r["launches"].get(kernel, 0) > 0,
+              f"[{phase}] {tag}: P={r['P']} not solved by {kernel}")
+    return {"ms": ms, "failure_rate": rate, "buckets": rows,
+            "differ_from_plain": diff}
+
+
+def check_buckets(torch, dev, card):
+    """The [buckets] phase: the pileup batch through process_batch under
+    each of BUCKET_CONFIGS, on the default route (K3) and on
+    use_fused_system (K6), each through check_bucket_run."""
+    from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
+    base, calib, batch = pileup_batch(torch, dev)
     summary = []
     for changes, widths in BUCKET_CONFIGS:
         for route, kernel in BUCKET_ROUTES.items():
             cfg = base.replace(**changes, **ROUTE_FLAGS[route])
             tag = f"{route} {changes or 'NPSConfig()'}"
-            t0 = time.perf_counter()
-            out, rows, plain = run_buckets(torch, cfg, calib, batch)
-            ms = (time.perf_counter() - t0) * 1e3
-            ref = process_batch(cfg, calib, batch, plain=True)
-            diff = {f: int((getattr(out, f) != getattr(ref, f)).sum())
-                    for f in ("wfnpulse", "gate", "fit_converged")}
-            n_fail = int(out.n_fit_failure)
-            rate = n_fail / max(int(out.n_fit_success) + n_fail, 1)
-            for r in rows:
-                say("buckets", f"{tag}: P={r['P']}: {r['lanes']} lanes, "
-                               f"{r['failed']} failed "
-                               f"({r['failed'] / max(r['lanes'], 1):.4%}), "
-                               f"launches {r['launches']}")
-            say("buckets", f"{tag}: {ms:.1f} ms, failure rate {rate:.4%}; "
-                           f"against the plain path on the card, values "
-                           f"differing {diff} of {E * B} ({card})")
-            check(not plain, f"[buckets] {tag}: plain versions ran: {plain}")
-            check(not any(diff.values()), f"[buckets] {tag}: differs from "
-                                          f"the plain path: {diff}")
-            carried = {r["P"] for r in rows if r["lanes"] > 0}
-            check(set(widths) <= carried, f"[buckets] {tag}: widths "
-                                          f"{sorted(set(widths) - carried)} "
-                                          f"carried no lanes")
-            for r in rows:
-                check(r["lanes"] == 0 or r["launches"].get(kernel, 0) > 0,
-                      f"[buckets] {tag}: P={r['P']} not solved by {kernel}")
-            summary.append({"route": route, "changes": changes, "ms": ms,
-                            "failure_rate": rate, "buckets": rows,
-                            "differ_from_plain": diff})
+            summary.append(dict(route=route, changes=changes, **check_bucket_run(
+                torch, "buckets", tag, cfg, calib, batch, widths, kernel,
+                card)))
     return summary
 
 
@@ -1103,9 +1136,10 @@ def profile_segment(torch, cfg, cal, seg, dev, tmp, card):
     return res
 
 
-def check_segments(torch, dev, card, route_ms, records):
+def check_segments(torch, dev, card, route_ms, records, out_dir):
     """The [segment] phase: each segment through run_segment (the sparse
-    one also in chains of SEG_CHAIN), checked and timed."""
+    one also in chains of SEG_CHAIN), checked and timed. The WF files go to
+    ``out_dir`` as {name}_{chain}.npz."""
     from npswf_tpu_torch.core.calibration import synthetic_calibration
     from npswf_tpu_torch.core.config import NPSConfig
     from npswf_tpu_torch.io.writer import read_wf
@@ -1137,7 +1171,7 @@ def check_segments(torch, dev, card, route_ms, records):
             runs = [1, SEG_CHAIN] if name == "sparse" else [1]
             files = {}
             for chain in runs:
-                out = os.path.join(tmp, f"{name}_{chain}.npz")
+                out = os.path.join(out_dir, f"{name}_{chain}.npz")
                 res, timers, launches, plain, reruns = run_segment_counted(
                     torch, cfg, cal, seg, out, chain, dev)
                 wf = read_wf(out)
@@ -1212,29 +1246,307 @@ def check_segments(torch, dev, card, route_ms, records):
     return summary
 
 
+def cli_call(phase, *argv, expect=0):
+    """One CLI subcommand in a subprocess (the card unless --cpu): its
+    standard output, after checking its exit code."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "npswf_tpu_torch.tools.cli",
+                          *argv], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO,
+                         timeout=600)
+    check(res.returncode == expect,
+          f"cli {argv[0]} exited {res.returncode}, expected {expect}:"
+          f"\n{res.stdout[-2000:]}{res.stderr[-3000:]}")
+    lines = res.stdout.strip().splitlines()
+    say(phase, f"{argv[0]}: rc {res.returncode} in "
+               f"{time.perf_counter() - t0:.1f} s; "
+               + (lines[-1] if lines else "(no output)"))
+    return res.stdout
+
+
+def fit_totals(stdout):
+    """(failed, succeeded) from run's "Total failed fits: ..." line."""
+    words = stdout.split("Total failed fits:")[1].split()
+    return int(words[0]), int(words[4])
+
+
 def check_cli(card):
     """synth -> run (the card: no --cpu) -> validate in subprocesses."""
-    env = dict(os.environ, PYTHONPATH=REPO)
     with tempfile.TemporaryDirectory() as tmp:
         seg, cal, out = (os.path.join(tmp, n) for n in ("s.npz", "c.npz", "o.npz"))
-        steps = [("synth", "--events", str(CLI_EVENTS), "--out", seg,
-                  "--calib-out", cal),
-                 ("run", "--input", seg, "--calib", cal, "--out", out),
-                 ("validate", out)]
-        outs = []
-        for argv in steps:
-            t0 = time.perf_counter()
-            res = subprocess.run([sys.executable, "-m", "npswf_tpu_torch.tools.cli",
-                                  *argv], capture_output=True, text=True,
-                                 env=env, cwd=REPO, timeout=600)
-            check(res.returncode == 0, f"cli {argv[0]} failed ({res.returncode}):"
-                                       f"\n{res.stdout[-2000:]}{res.stderr[-3000:]}")
-            outs.append(res.stdout)
-            say("cli", f"{argv[0]}: rc 0 in {time.perf_counter() - t0:.1f} s; "
-                       + res.stdout.strip().splitlines()[-1])
-        check("fits succeed" in outs[1], "cli run printed no fit totals")
-        check("index OK" in outs[2], "cli validate did not pass")
+        cli_call("cli", "synth", "--events", str(CLI_EVENTS), "--out", seg,
+                 "--calib-out", cal)
+        ran = cli_call("cli", "run", "--input", seg, "--calib", cal, "--out", out)
+        check("fits succeed" in ran, "cli run printed no fit totals")
+        check("index OK" in cli_call("cli", "validate", out),
+              "cli validate did not pass")
     say("cli", f"synth -> run on the card -> validate: index OK ({card})")
+
+
+# ---------------------------------------------------------------------
+# this slice's paths: the model families, K3's wide widths, the tools
+# ---------------------------------------------------------------------
+def gauss_truth_batch(torch, cfg, cal, width, dev, seed=3):
+    """E_BENCH events of the full calorimeter whose true pulses are
+    gaussians of ``width``, six blocks an event, built as
+    tests/test_models.py::_gauss_batch builds them: the fp32 batch and
+    (event, block) -> (delta, amp, ped)."""
+    from npswf_tpu_torch.core.params import batch_to_torch
+    rng = np.random.default_rng(seed)
+    E, B, T = E_BENCH, cfg.nblocks, cfg.ntime
+    x = np.arange(T, dtype=np.float64)
+    sig = 0.3 * rng.standard_normal((E, B, T))
+    truth = {}
+    for e in range(E):
+        for b in rng.choice(B, size=6, replace=False):
+            delta = rng.uniform(-2.0, 2.0)
+            amp = rng.uniform(80.0, 150.0)
+            ped = rng.uniform(-3.0, 3.0)
+            c = cal.timeref[b] + delta
+            sig[e, b] += ped + amp * np.exp(-0.5 * ((x - c) / width) ** 2)
+            truth[(e, int(b))] = (delta, amp, ped)
+    batch = batch_to_torch(sig.astype(np.float32), np.ones((E, B), bool),
+                           np.zeros(E, np.float32), dev, torch.float32)
+    return batch, truth
+
+
+def check_models(torch, cfg, cal, calib, batch, dev, card):
+    """The [models] phase: the dense bench batch through process_batch with
+    each family of MODEL_FAMILIES, its launches read around that run alone
+    (K1 and K2, nothing of K3-K7, no plain call), its decisions against the
+    plain path on the card, timed (median of 3 after a warm-up); then a
+    batch of true gaussian pulses fitted with the gaussian family: on the
+    gated truth lanes the fitted first-pulse time within 0.5 dt of truth
+    wherever the fit converged, and the share of fits that failed within
+    the 2% band (fp32 stalls a marginal lane now and then, as on the
+    default route)."""
+    from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.engine.pipeline import process_batch
+    E, B, _ = batch.signal.shape
+    summary = {}
+    for family, aux in MODEL_FAMILIES.items():
+        mcfg = cfg.replace(model_name=family, model_aux=aux)
+        kernels.reset_counts()
+        out = process_batch(mcfg, calib, batch)
+        torch.cuda.synchronize()
+        launches, plain = dict(kernels.launches), dict(kernels.plain_calls)
+        for name in ("matched_filter", "search_operands"):
+            check(launches.get(name, 0) > 0, f"[models] {family}: {name} "
+                                             f"not launched")
+        others = {k: v for k, v in launches.items()
+                  if k not in ("matched_filter", "search_operands")}
+        check(not others, f"[models] {family}: launched {others}")
+        check(not plain, f"[models] {family}: plain versions ran: {plain}")
+        for f, v in out._asdict().items():
+            if v.is_floating_point():
+                check(bool(torch.isfinite(v).all()), f"[models] {family}: "
+                                                     f"{f} not finite")
+        ref = process_batch(mcfg, calib, batch, plain=True)
+        diff = {f: int((getattr(out, f) != getattr(ref, f)).sum())
+                for f in ("wfnpulse", "gate", "fit_converged")}
+        check(not any(diff.values()), f"[models] {family}: differs from the "
+                                      f"plain path: {diff}")
+
+        def timed():
+            t0 = time.perf_counter()
+            process_batch(mcfg, calib, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        timed()
+        ms = float(np.median([timed() for _ in range(3)]))
+        n_succ, n_fail = int(out.n_fit_success), int(out.n_fit_failure)
+        rate = n_fail / max(n_succ + n_fail, 1)
+        say("models", f"{family} {dict(aux)}: launches {launches}; fits ok "
+                      f"{n_succ}, failed {n_fail} ({rate:.4%}); against the "
+                      f"plain path, values differing {diff} of {E * B}; "
+                      f"{ms:.3f} ms per {E}-event batch (median of 3), "
+                      f"{E * B / (ms / 1e3):.0f} blocks/s ({card})")
+        summary[family] = {"launches": launches, "ms": ms,
+                           "failure_rate": rate, "fits_ok": n_succ,
+                           "fits_failed": n_fail, "differ_from_plain": diff}
+    width = dict(MODEL_FAMILIES["gaussian"])["width"]
+    gbatch, truth = gauss_truth_batch(torch, cfg, cal, width, dev)
+    gcfg = cfg.replace(model_name="gaussian", model_aux=MODEL_FAMILIES["gaussian"])
+    out = process_batch(gcfg, calib, gbatch)
+    torch.cuda.synchronize()
+    gate, conv = out.gate.cpu().numpy(), out.fit_converged.cpu().numpy()
+    t0 = out.wftime[..., 0].cpu().numpy()
+    lanes = [(e, b, delta) for (e, b), (delta, _, _) in truth.items()
+             if gate[e, b]]
+    err = np.array([abs(t0[e, b] - (delta * cfg.dt - cal.cortime[b]
+                                    - cal.timerefacc * cfg.dt)) / cfg.dt
+                    for e, b, delta in lanes if conv[e, b]])
+    n_fail = len(lanes) - err.size
+    say("models", f"gaussian truth batch: {len(lanes)} of {len(truth)} truth "
+                  f"lanes gated, {err.size} converged, {n_fail} failed "
+                  f"({n_fail / max(len(lanes), 1):.4%}); on the converged "
+                  f"|t_fit - t_true| max {err.max():.4f}, median "
+                  f"{np.median(err):.4f} bins ({card})")
+    check(len(lanes) >= len(truth) // 2, "[models] too few truth lanes gated")
+    check(n_fail <= FAIL_RATE_MAX * len(lanes),
+          f"[models] {n_fail} of {len(lanes)} gaussian truth fits failed")
+    check(float(err.max()) < 0.5, "[models] a fitted time is 0.5 dt off truth")
+    summary["gaussian_truth"] = {"lanes": len(lanes), "failed": n_fail,
+                                 "max_err_bins": float(err.max()),
+                                 "median_err_bins": float(np.median(err))}
+    return summary
+
+
+def check_k3_wide(torch, dev, card):
+    """The [k3-wide] phase: K3 at P = 13-15 on check_lm's inputs
+    (WIDE_LANES lanes; tests/test_torch_package.py has the retry-shaped
+    calls at these widths), both types,
+    u, chi2, conv, n_iter and lambda equal to its plain version on every
+    lane; P = 16 refused before any launch; then the pileup batch with
+    its widest bucket at 15 pulses (WIDE_BUCKETS) through check_bucket_run."""
+    from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel, lm_solve_plain
+    cfg = NPSConfig(compute_dtype="float32", maxwfpulses=15)
+    cal = synthetic_calibration(cfg, seed=1)
+    equal = {}
+    for P, max_pulses in WIDE_WIDTHS:
+        for dt in (torch.float64, torch.float32):
+            n = WIDE_LANES
+            args = lm_inputs(torch, cfg, cal, n, max_pulses, P, 91 + P + n,
+                             dt, dev)
+            t0 = time.perf_counter()
+            k = lm_solve_kernel(cfg, *args)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p = lm_solve_plain(cfg, *args)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n_eq = lm_equal(torch, k, p)
+            its = p[3][args[9]]
+            say("k3-wide", f"P={P} {dt} {n} lanes (up to {max_pulses} "
+                           f"pulses, {int(p[2].sum())} converged, n_iter "
+                           f"{int(its.min())}..{int(its.max())}): u, chi2, "
+                           f"conv, n_iter and lambda equal on {n_eq}; "
+                           f"first call {(t1 - t0) * 1e3:.1f} ms, plain "
+                           f"{(t2 - t1) * 1e3:.1f} ms ({card})")
+            check(n_eq == n, f"K3 not bit-equal at P={P} {dt} n={n}")
+            equal[f"P={P} {dt} n={n}"] = n_eq
+    args = lm_inputs(torch, cfg.replace(maxwfpulses=16), cal, 2, 2, 16, 5,
+                     torch.float32, dev)
+    kernels.reset_counts()
+    try:
+        lm_solve_kernel(cfg, *args)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused and not kernels.launches, "K3 took P=16")
+    say("k3-wide", "P=16 refused before any launch")
+    base, calib, batch = pileup_batch(torch, dev)
+    run = check_bucket_run(torch, "k3-wide", f"default {WIDE_BUCKETS}",
+                           base.replace(**WIDE_BUCKETS), calib, batch,
+                           (2, 15), "lm_solve", card)
+    return {"bit_equal_lanes": equal, "batch": dict(changes=WIDE_BUCKETS, **run)}
+
+
+def host_cpu():
+    """The host's name, CPU model and core count (for host-clock numbers)."""
+    import platform
+    name = platform.processor() or platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    return f"host {platform.node()}, {name}, {os.cpu_count()} cores"
+
+
+def check_tools(torch, dev, card, dense_wf):
+    """The [tools] phase, through the CLI in subprocesses: parity of the
+    dense [segment] WF file against itself (exit 0) and against a copy with
+    every wftime 0.2 bins later (exit 1); extract-templates on a dense
+    single-pulse segment, then run on the card with that calibration;
+    solver-audit on the card; cpu-baseline (host numbers). The audit's fit
+    also runs in process, its launches counted (K1, K2, K3, no plain
+    call)."""
+    from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.tools.solver_audit import audit_signal
+    from npswf_tpu_torch.utils.synthetic import make_events
+    cfg = NPSConfig()
+    summary = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        shifted = os.path.join(tmp, "shifted.npz")
+        with np.load(dense_wf, allow_pickle=False) as z:
+            cols = dict(z)
+        cols["wftime_flat"] = cols["wftime_flat"] + 0.2 * cfg.dt
+        np.savez(shifted, **cols)
+        cli_call("tools", "parity", "--ref", dense_wf, "--ours", dense_wf)
+        cli_call("tools", "parity", "--ref", dense_wf, "--ours", shifted,
+                 expect=1)
+        say("tools", "parity: the dense segment's WF file passes against "
+                     "itself and fails with wftime 0.2 bins later")
+
+        seg, cal, calx, wf = (os.path.join(tmp, n) for n in
+                              ("seg.npz", "cal.npz", "calx.npz", "wf.npz"))
+        cli_call("tools", "synth", "--events", str(EXTRACT_EVENTS),
+                 "--occupancy", "1.0", "--max-pulses", "1", "--out", seg,
+                 "--calib-out", cal)
+        ext = cli_call("tools", "extract-templates", "--", seg, calx)
+        n_ext = int(ext.split("extracted templates for ")[1].split("/")[0])
+        n_fail, n_succ = fit_totals(cli_call("tools", "run", "--input", seg,
+                                             "--calib", calx, "--out", wf))
+        rate = n_fail / max(n_fail + n_succ, 1)
+        say("tools", f"extract-templates: {n_ext} of {cfg.nblocks} blocks "
+                     f"from {EXTRACT_EVENTS} events; run on the card with "
+                     f"them: {n_succ} fits ok, {n_fail} failed ({rate:.4%}) "
+                     f"({card})")
+        check(n_ext > 1000, f"[tools] only {n_ext} blocks extracted")
+        check(rate < FAIL_RATE_MAX, f"[tools] failure rate {rate:.4%} with "
+                                    f"the extracted calibration")
+        summary["extract_templates"] = {"blocks": n_ext, "fits_ok": n_succ,
+                                        "fits_failed": n_fail,
+                                        "failure_rate": rate}
+
+        acal = synthetic_calibration(cfg, seed=1)
+        truth = make_events(cfg, acal, AUDIT_EVENTS, occupancy=1.0,
+                            max_pulses=2, pileup_prob=0.25, seed=7)
+        kernels.reset_counts()
+        row = audit_signal(cfg, acal, truth.signal, truth.pres, sample=20,
+                           device=dev)
+        torch.cuda.synchronize()
+        launches, plain = dict(kernels.launches), dict(kernels.plain_calls)
+        say("tools", f"solver audit in process, clean ensemble: {row}; "
+                     f"launches {launches}")
+        for name in ("matched_filter", "search_operands", "lm_solve"):
+            check(launches.get(name, 0) > 0, f"[tools] audit: {name} not "
+                                             f"launched")
+        check(not plain, f"[tools] audit: plain versions ran: {plain}")
+        out = cli_call("tools", "solver-audit", "--", "--events",
+                       str(AUDIT_EVENTS), "--sample", "20")
+        table = json.loads(out.strip().splitlines()[-1])
+        for name, r in table.items():
+            say("tools", f"solver-audit {name}: {r['n_fits']} fits, "
+                         f"{r['n_failed']} failed, {r['n_audited']} audited: "
+                         f"lm_stuck {r['lm_stuck']}, same_minimum "
+                         f"{r['same_minimum']}, lm_better {r['lm_better']}")
+        check(set(table) == {"clean", "wrong_shape", "correlated_noise",
+                             "clipped"}, "[tools] solver-audit ensembles")
+        summary["solver_audit"] = {"in_process_launches": launches,
+                                   "table": table}
+
+        base = json.loads(cli_call("tools", "cpu-baseline", "--",
+                                   "--time-budget-s", "1", "--min-blocks",
+                                   "8"))
+        cpu = host_cpu()
+        bps = base["blocks_per_sec_4thread"]
+        say("tools", f"cpu-baseline: {bps['median']:.1f} blocks/s "
+                     f"(4 threads, median of seeds; min {bps['min']:.1f}, "
+                     f"max {bps['max']:.1f}) on the host CPU ({cpu}), "
+                     f"not a card number")
+        summary["cpu_baseline"] = {"blocks_per_sec_4thread": bps,
+                                   "host_cpu": cpu}
+    return summary
 
 
 def time_systems(torch, card):
@@ -1357,14 +1669,27 @@ def run(torch) -> int:
     for name, route in LAUNCHES_FROM.items():
         records[name]["launches"] = route_launches[route].get(name, 0)
     time_lm_launches(torch, cfg, calib, batch, records, card)
-    del default_out, out, truth, batch
+    del default_out, out, truth
+    t0 = time.perf_counter()
+    models = check_models(torch, cfg, cal, calib, batch, dev, card)
+    say("models", f"phase done in {time.perf_counter() - t0:.1f} s")
+    del batch
     t0 = time.perf_counter()
     buckets = check_buckets(torch, dev, card)
     say("buckets", f"phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    k3_wide = check_k3_wide(torch, dev, card)
+    say("k3-wide", f"phase done in {time.perf_counter() - t0:.1f} s")
 
-    # ---- 6. the segment executor and the CLI -----------------------------
-    segment = check_segments(torch, dev, card, route_ms["default"], records)
-    check_cli(card)
+    # ---- 6. the segment executor, the CLI and the tools ------------------
+    with tempfile.TemporaryDirectory() as wf_dir:
+        segment = check_segments(torch, dev, card, route_ms["default"],
+                                 records, wf_dir)
+        check_cli(card)
+        t0 = time.perf_counter()
+        tools = check_tools(torch, dev, card,
+                            os.path.join(wf_dir, "dense_1.npz"))
+        say("tools", f"phase done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 7. records -----------------------------------------------------
     for r in records.values():
@@ -1379,6 +1704,9 @@ def run(torch) -> int:
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"segment": segment}))
     print(json.dumps({"buckets": buckets}))
+    print(json.dumps({"models": models}))
+    print(json.dumps({"k3_wide": k3_wide}))
+    print(json.dumps({"tools": tools}))
     say("done", f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

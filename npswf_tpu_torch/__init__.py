@@ -6,10 +6,12 @@ mirrors its layout and names so each counterpart is easy to find:
 - ``core.config``, ``core.calibration`` — copies of the reference's
                      host layer (``NPSConfig``, the calibration bundle)
 - ``core.params``  — calibration arrays and event batches to tensors
-- ``utils.synthetic`` — a copy of the reference's synthetic events
+- ``utils.synthetic`` — a copy of the reference's synthetic events and
+                     its adversarial ensembles
 - ``ops``          — matched filter, TSpectrum-parity peak search, 3x3
                      cluster gate, cubic-spline evaluation
-- ``models``       — the spline reference waveform model
+- ``models``       — the spline reference waveform model, and the
+                     gaussian and biexp pulse families (plain PyTorch)
 - ``fit``          — error model, Cholesky, the bounded LM fit with its
                      stage-2/stage-3 retry ladder, and the system
                      evaluations of its generic loop (``eval_kernel``)
@@ -20,12 +22,19 @@ mirrors its layout and names so each counterpart is easy to find:
                      their decode (``io/native/decode.cpp``, built with g++
                      into ``build/npswf_tpu_torch/``; numpy on request), the
                      WF writer and the streaming merge of its parts
-- ``golden``       — the raw-stream decode oracle (a copy)
+- ``golden``       — the scalar numpy oracles and the Decimal
+                     SearchHighRes (copies)
 - ``runtime``      — ``executor.run_segment``: a raw segment to a WF file,
                      two stage workers with a CUDA stream each, ordered
                      fetch, a writer thread, resume
 - ``tools``        — ``cli`` (``python -m npswf_tpu_torch.tools.cli
-                     run|synth|validate``) and ``plotstats`` (a copy)
+                     run|synth|validate|parity|diagnostics`` and the
+                     pass-through tools), copies of the host tools
+                     (``plotstats``, ``parity``, ``diagnostics``,
+                     ``cpu_baseline``, ``convert_root``,
+                     ``convert_wf_to_root``, ``extract_templates``,
+                     ``derive_fixtures``) and ``solver_audit`` (its fit on
+                     the card)
 - ``utils.timers`` — stage timers (a copy) and a ``torch.profiler`` trace
 - ``kernels``      — builds the CUDA library from ``csrc/`` with nvcc and
                      keeps the launch counters
@@ -45,8 +54,9 @@ package. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel or raises. Passing ``plain=True`` to the
 public functions runs the plain versions on any device (the reference the
 kernels are held against on the card). The entry points (``run_segment``,
-the CLI's ``run``) use the CUDA device unless the caller asks for the CPU
-(``device="cpu"``, ``--cpu``); without a card they raise.
+the CLI's ``run`` and ``solver-audit``) use the CUDA device unless the
+caller asks for the CPU (``device="cpu"``, ``--cpu``); without a card they
+raise.
 
 ``NPSConfig`` knobs that change results are honoured, and so are the four
 that route work onto kernels as the reference does: ``use_pallas_lm`` with

@@ -14,6 +14,9 @@ NPSWF_LM_WIDTH(extern, 9)
 NPSWF_LM_WIDTH(extern, 10)
 NPSWF_LM_WIDTH(extern, 11)
 NPSWF_LM_WIDTH(extern, 12)
+NPSWF_LM_WIDTH(extern, 13)
+NPSWF_LM_WIDTH(extern, 14)
+NPSWF_LM_WIDTH(extern, 15)
 
 namespace npswf {
 
@@ -30,7 +33,7 @@ static cudaError_t dispatch_from(int p, const void* const* in, void* const* out,
 
 }  // namespace npswf
 
-// Pulse counts with a compiled instantiation: 1..12.
+// Pulse counts with a compiled instantiation: 1..15.
 extern "C" int npswf_lm_supported(int p) { return p >= 1 && p <= npswf::kMaxP; }
 
 // in: coeffs, x0, yt, wt, u0, lo, hi, pseed, pmask, active, budget, lam0

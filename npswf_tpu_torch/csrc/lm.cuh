@@ -453,7 +453,7 @@ cudaError_t launch(const void* const* in, void* const* out,
 
 // Every pulse count from 1 to kMaxP, one instantiation each (the team's
 // solves hold one row of the M x M system a thread: M <= kTeam).
-constexpr int kMaxP = 12;
+constexpr int kMaxP = 15;
 static_assert(1 + 2 * kMaxP <= kTeam, "the solves hold one row a thread");
 
 }  // namespace npswf

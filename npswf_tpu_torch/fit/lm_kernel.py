@@ -18,9 +18,10 @@ from npswf_tpu_torch.fit.eval_kernel import SEG, system_plain_body
 from npswf_tpu_torch.fit.lm import CHOL_EPS, SAT_THRESH, lm_loop
 
 # The widest pulse count K3 is compiled for (csrc/lm.cuh, kMaxP): its team of
-# 32 threads holds one row of the M x M system a thread, and each width is
-# its own instantiation; 12 is the default pallas_lm_max_pulses.
-LM_MAX_PULSES = 12
+# 32 threads holds one row of the M x M system a thread (M = 31 at P = 15),
+# and each width is its own instantiation; 12 is the default
+# pallas_lm_max_pulses.
+LM_MAX_PULSES = 15
 
 
 def lm_solve_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,

@@ -1,4 +1,4 @@
-"""Waveform model family (spline reference model).
+"""Waveform model families.
 
 Counterpart of npswf_tpu/models/waveform.py: the reference's fit model
 (ref TEST_2.C:621-635)
@@ -10,7 +10,10 @@ analytic Jacobian in the physical parameter layout
 ``p = [ped, t_0, A_0, t_1, A_1, ...]``. Two evaluations of the same model:
 ``spline_ref`` selects segments by gather (ops/spline.py); ``spline_ref_pallas``
 reads the padded segment planes (``coeffs_pad``) through the K5 kernel
-(fit/eval_kernel.py), the evaluation K3 runs inside its loop.
+(fit/eval_kernel.py), the evaluation K3 runs inside its loop. Two other
+pulse shapes, ``gaussian`` and ``biexp``, are plain PyTorch (the reference
+package computes them outside any kernel too); the generic LM loop fits
+them, with their shape constants from ``NPSConfig.model_aux``.
 """
 from __future__ import annotations
 
@@ -98,8 +101,65 @@ class SplineRefPlanesModel(WaveformModel):
         return f, J
 
 
+class GaussianPulseModel(WaveformModel):
+    """Pedestal + sum of Gaussians of fixed width: ``aux['width']`` [N] is
+    the per-lane sigma in bins. Times are relative to ``aux['timeref']``
+    when the engine gives one (FitInputs.timeref), absolute otherwise."""
+
+    name = "gaussian"
+
+    def eval_and_jac(self, cfg, params, aux, xgrid, pulse_mask, plain=False):
+        w = aux["width"][:, None, None]                 # [N, 1, 1]
+        center = aux.get("timeref")
+        c = 0.0 if center is None else center[:, None, None]
+        tpar = params[:, 1::2][:, :, None] + c          # [N, P, 1] absolute
+        apar = params[:, 2::2][:, :, None]
+        act = pulse_mask[:, :, None].to(params.dtype)
+        z = (xgrid[None, None, :] - tpar) / w           # [N, P, K]
+        val = torch.exp(-0.5 * z * z)
+        dval = val * z / w                              # d/dt exp(-(x-t)^2/2w^2)
+        f = params[:, :1] + torch.sum(act * apar * val, dim=1)
+        J = _interleave_jac(torch.ones_like(f), (act * apar * dval).unbind(1),
+                            (act * val).unbind(1))
+        return f, J
+
+
+class BiexpPulseModel(WaveformModel):
+    """Normalized difference of two exponentials,
+    s(v) = norm * (exp(-v/tau_d) - exp(-v/tau_r)) for v > 0, else 0, with v
+    the time since the pulse's onset. t_n is the pulse's PEAK time and norm
+    makes the peak 1, so amplitudes mean what they mean in the other
+    families. ``aux['tau_r']``/``aux['tau_d']`` [N] are the rise and decay
+    constants in bins (tau_d > tau_r)."""
+
+    name = "biexp"
+
+    def eval_and_jac(self, cfg, params, aux, xgrid, pulse_mask, plain=False):
+        tr = aux["tau_r"][:, None, None]                # [N, 1, 1]
+        td = aux["tau_d"][:, None, None]
+        center = aux.get("timeref")
+        c = 0.0 if center is None else center[:, None, None]
+        tpar = params[:, 1::2][:, :, None] + c          # [N, P, 1] absolute peak
+        apar = params[:, 2::2][:, :, None]
+        act = pulse_mask[:, :, None].to(params.dtype)
+        # the peak sits ustar after the onset; norm makes it 1
+        ustar = torch.log(td / tr) * tr * td / (td - tr)
+        norm = 1.0 / (torch.exp(-ustar / td) - torch.exp(-ustar / tr))
+        v = xgrid[None, None, :] - tpar + ustar         # time since onset
+        pos = v > 0
+        vs = torch.where(pos, v, 0.0)                   # exp-safe gating
+        ed = torch.exp(-vs / td)
+        er = torch.exp(-vs / tr)
+        val = torch.where(pos, norm * (ed - er), 0.0)
+        dvdv = torch.where(pos, norm * (er / tr - ed / td), 0.0)  # d val / dv
+        f = params[:, :1] + torch.sum(act * apar * val, dim=1)
+        # v = x - t + ustar, so d f / d t = -A * d val / d v
+        J = _interleave_jac(torch.ones_like(f), (-act * apar * dvdv).unbind(1),
+                            (act * val).unbind(1))
+        return f, J
+
+
 _REGISTRY: Dict[str, WaveformModel] = {}
-_NOT_PORTED = ("gaussian", "biexp")
 
 
 def register_model(model: WaveformModel) -> WaveformModel:
@@ -108,12 +168,10 @@ def register_model(model: WaveformModel) -> WaveformModel:
 
 
 def get_model(name: str) -> WaveformModel:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP Queue 1: the "
-            "gaussian and biexp models)")
     return _REGISTRY[name]
 
 
 register_model(SplineRefModel())
 register_model(SplineRefPlanesModel())
+register_model(GaussianPulseModel())
+register_model(BiexpPulseModel())

@@ -11,11 +11,19 @@ Subcommands:
     run             process a raw segment into a WF output file
     synth           generate a synthetic raw segment + calibration (testing)
     validate        plotstats-equivalent output-integrity check
+    parity          per-pulse residuals against a reference WF file
+    diagnostics     per-event fitted-waveform plots (ref C15, TEST_2.C:1134-1285;
+                    needs matplotlib)
 
-``run`` uses the CUDA device unless ``--cpu`` is given; without a card it
-exits non-zero. ``--x64`` is accepted and does nothing: the compute dtype
-is the configuration's ``compute_dtype``. More than one device
-(``--devices``, ``--block-shards``) is not ported yet.
+plus pass-through wrappers for the analysis/maintenance tools (forward
+their flags after ``--``): convert-root, convert-wf-root, solver-audit,
+cpu-baseline, derive-fixtures, extract-templates.
+
+``run`` and ``solver-audit`` use the CUDA device unless ``--cpu`` is given;
+without a card they exit non-zero. The other tools work on the host.
+``--x64`` is accepted and does nothing: the compute dtype is the
+configuration's ``compute_dtype``. More than one device (``--devices``,
+``--block-shards``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -48,6 +56,16 @@ def _load_calibration(cfg, args):
     return synthetic_calibration(cfg, run=args.run)
 
 
+def _with_config_file(cfg, path):
+    """``cfg`` with the fields an NPSConfig JSON file names replaced."""
+    import json
+    from npswf_tpu_torch.core.config import NPSConfig
+    with open(path) as f:
+        text = f.read()
+    given = NPSConfig.from_json(text)
+    return cfg.replace(**{k: getattr(given, k) for k in json.loads(text)})
+
+
 def cmd_run(args) -> int:
     import torch
     from npswf_tpu_torch.core.config import config_for_run
@@ -75,6 +93,8 @@ def cmd_run(args) -> int:
         return 2
 
     cfg = config_for_run(args.run)
+    if args.config:
+        cfg = _with_config_file(cfg, args.config)
     if args.fit_capacity:
         cfg = cfg.replace(fit_capacity=args.fit_capacity)
     if args.search_capacity:
@@ -143,9 +163,62 @@ def cmd_synth(args) -> int:
     return 0
 
 
+def cmd_parity(args) -> int:
+    from npswf_tpu_torch.tools.parity import run_parity
+    report = run_parity(args.ref, args.ours, dt_ns=args.dt,
+                        time_tol_bins=args.time_tol_bins,
+                        json_out=args.json)
+    return 0 if report["pass"] else 1
+
+
 def cmd_validate(args) -> int:
     from npswf_tpu_torch.tools.plotstats import main as plotstats_main
     return plotstats_main([args.wf_file] + (["--verbose"] if args.verbose else []))
+
+
+def cmd_diagnostics(args) -> int:
+    import importlib.util
+    if importlib.util.find_spec("matplotlib") is None:
+        print("ERROR: diagnostics draws with matplotlib, which is not "
+              "installed", file=sys.stderr)
+        return 2
+    from npswf_tpu_torch.tools.diagnostics import make_event_plots
+    n = make_event_plots(args.wf_file, args.input, args.calib, args.outdir,
+                         events=args.events)
+    print(f"wrote {n} diagnostic pages to {args.outdir}")
+    return 0
+
+
+# Tools with their own argparse mains, surfaced as pass-through subcommands
+# (``npswf <name> -- --their-flags``). Each value is (module, help).
+_DELEGATED = {
+    "convert-root": ("npswf_tpu_torch.tools.convert_root",
+                     "ROOT raw file -> segment .npz bridge (needs uproot)"),
+    "convert-wf-root": ("npswf_tpu_torch.tools.convert_wf_to_root",
+                        "WF .npz -> ROOT WF-tree bridge (needs uproot; "
+                        "ref TEST_2.C:1383-1432 output format)"),
+    "solver-audit": ("npswf_tpu_torch.tools.solver_audit",
+                     "classify LM fit failures vs an independent scipy-TRF "
+                     "solve on adversarial ensembles"),
+    "cpu-baseline": ("npswf_tpu_torch.tools.cpu_baseline",
+                     "measured single-thread CPU reference denominator "
+                     "(golden search + scipy TRF per block)"),
+    "derive-fixtures": ("npswf_tpu_torch.tools.derive_fixtures",
+                        "re-derive the Decimal SearchHighRes fixture file"),
+    "extract-templates": ("npswf_tpu_torch.tools.extract_templates",
+                          "build per-block reference-waveform calibration "
+                          "from clean single-pulse events in a raw segment"),
+}
+
+
+def _make_delegate(module_name: str):
+    def _run(args) -> int:
+        import importlib
+        rest = list(args.tool_args)
+        if rest and rest[0] == "--":
+            rest = rest[1:]
+        return int(importlib.import_module(module_name).main(rest) or 0)
+    return _run
 
 
 _X64_HELP = ("accepted and ignored: the compute dtype is the configuration's "
@@ -171,7 +244,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="WF output .npz (default: "
                         "nps_production_{run}_{seg}_{devices}_wf.npz)")
     p.add_argument("--model", default=None,
-                   help="waveform model family (default spline_ref)")
+                   help="waveform model family (default spline_ref; "
+                        "gaussian and biexp take their shape constants "
+                        "from model_aux in --config)")
+    p.add_argument("--config", default=None,
+                   help="NPSConfig JSON whose fields replace the run's, e.g. "
+                        '{"model_name": "gaussian", "model_aux": '
+                        '[["width", 3.5]]}')
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--chain-batches", type=int, default=1,
                    help="batches a call, fetched as one stacked packet")
@@ -211,10 +290,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--x64", action="store_true", help=_X64_HELP)
     p.set_defaults(fn=cmd_synth)
 
+    p = sub.add_parser(
+        "parity", help="per-pulse time/amp/chi2 residuals vs a reference WF "
+                       "file (ROOT via uproot, or another WF .npz)")
+    p.add_argument("--ref", required=True)
+    p.add_argument("--ours", required=True)
+    p.add_argument("--dt", type=float, default=4.0, help="ns per bin")
+    p.add_argument("--time-tol-bins", type=float, default=0.05)
+    p.add_argument("--json", default=None, help="write the full report here")
+    p.set_defaults(fn=cmd_parity)
+
     p = sub.add_parser("validate", help="output-integrity check (plotstats)")
     p.add_argument("wf_file")
     p.add_argument("--verbose", action="store_true")
     p.set_defaults(fn=cmd_validate)
+
+    p = sub.add_parser("diagnostics", help="per-event fit plots")
+    p.add_argument("wf_file")
+    p.add_argument("--input", required=True)
+    p.add_argument("--calib", required=True)
+    p.add_argument("--outdir", default="figures")
+    p.add_argument("--events", type=int, nargs="*", default=None)
+    p.add_argument("--cpu", action="store_true",
+                   help="accepted and ignored: diagnostics runs on the host")
+    p.add_argument("--x64", action="store_true", help=_X64_HELP)
+    p.set_defaults(fn=cmd_diagnostics)
+
+    for name, (module, help_text) in _DELEGATED.items():
+        p = sub.add_parser(name, help=help_text)
+        p.add_argument("tool_args", nargs=argparse.REMAINDER,
+                       help="arguments forwarded to the tool "
+                            "(see `npswf %s -- --help`)" % name)
+        p.set_defaults(fn=_make_delegate(module))
     return ap
 
 

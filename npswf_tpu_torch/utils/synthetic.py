@@ -1,5 +1,5 @@
-# Copied from npswf_tpu/utils/synthetic.py (without adversarial_variants);
-# tests/test_torch_host.py pins it there.
+# Copied from npswf_tpu/utils/synthetic.py; tests/test_torch_host.py pins it
+# there.
 """Synthetic event generation for tests and benchmarks.
 
 Generates raw waveform batches with known ground truth by sampling pulses
@@ -77,3 +77,36 @@ def make_events(cfg: NPSConfig, cal: CalibrationBundle, n_events: int,
     return SyntheticTruth(signal=signal, pres=pres, npulse=npulse,
                           times=times, amps=amps, pedestal=pedestal)
 
+
+def adversarial_variants(cfg: NPSConfig, cal: CalibrationBundle,
+                         truth: SyntheticTruth, seed: int = 23):
+    """The three solver-stress ensembles: wrong pulse shape, correlated
+    (non-white) noise, and ADC-saturated (clipped) pulses.
+
+    The clean-synthetic failure rate is measured on waveforms generated from
+    the SAME spline model the fit assumes, so it is NOT comparable to the
+    reference's 1-2% on real detector data (ref README.md:129); these
+    variants stress the solver the way real data does. Shared between
+    ``bench.py`` (failure-rate diagnostics) and ``tools/solver_audit.py``
+    (the scipy-TRF failure classification) so both see identical data.
+
+    Returns an ordered dict name -> signal [E, B, T] (f64).
+    """
+    rng_a = np.random.default_rng(seed)
+    x = np.arange(cfg.ntime, dtype=np.float64)
+    # wrong shape: gaussian pulses where the fit assumes the spline template
+    wrong = truth.pedestal[..., None] + 0.5 * rng_a.standard_normal(
+        truth.signal.shape)
+    centers = np.where(truth.times[..., :1] > 0, truth.times[..., :1],
+                       cal.timeref[None, :, None])
+    wrong += np.maximum(truth.amps[..., :1], 40.0) * np.exp(
+        -0.5 * ((x[None, None, :] - centers) / 3.0) ** 2)
+    # correlated noise: 7-bin moving-average noise, 4x amplitude
+    white = rng_a.standard_normal(truth.signal.shape)
+    corr_noise = np.cumsum(white, axis=-1)
+    corr_noise[..., 7:] -= corr_noise[..., :-7].copy()
+    corr = truth.signal + 4.0 * corr_noise / np.sqrt(7.0)
+    # clipped: scale up then saturate at a fixed ADC ceiling
+    clipped = np.minimum(truth.signal * 6.0, 600.0)
+    return {"wrong_shape": wrong, "correlated_noise": corr,
+            "clipped": clipped}

@@ -155,6 +155,10 @@ def test_error_model_and_cholesky_match_jax(cfg):
 
 
 def test_unported_models_raise():
-    for name in ("gaussian", "biexp"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(name)
+    """Every model family of the JAX package is registered in the port
+    (gaussian and biexp included), each under its own name; a name that is
+    no model still raises."""
+    for name in ("spline_ref", "spline_ref_pallas", "gaussian", "biexp"):
+        assert get_model(name).name == jax_get_model(name).name == name
+    with pytest.raises(KeyError):
+        get_model("no_such_model")

@@ -3,14 +3,17 @@
 The port imports nothing of the JAX package, so the host code it shares is
 copied: ``core.config``, ``core.calibration``, ``utils.synthetic``, the
 host I/O (``io.rawstream``, ``io.decode``, ``io.writer``, ``io.merge``, the
-C++ decoder ``io/native/decode.cpp``), the decode oracle of
-``golden.reference``, ``tools.plotstats``, ``StageTimer`` and the host
-inverses of the writer packets. Same fields and defaults, same arrays from
+C++ decoder ``io/native/decode.cpp``), the scalar oracles
+(``golden.reference``, ``golden.searchhighres_decimal``), the host tools
+(``parity``, ``diagnostics``, ``cpu_baseline``, ``convert_root``,
+``convert_wf_to_root``, ``extract_templates``, ``derive_fixtures``,
+``plotstats``), ``StageTimer`` and the host inverses of the writer packets. Same fields and defaults, same arrays from
 the same seeds, and every copied function and method identical in source
 up to the package's name.
 
 Ported, not copied (``PORTED`` says why for each): the executor's device
-side, the CLI's commands and ``device_trace``. The native loader
+side, the CLI's commands, ``device_trace``, the solver audit's device side
+and ``cpu_baseline.main``. The native loader
 (``io/native/__init__.py``) is a port as a whole: it builds into the
 port's build directory under a lock and raises where the original falls
 back to numpy.
@@ -29,26 +32,44 @@ import npswf_tpu.core.calibration as jax_calibration
 import npswf_tpu.core.config as jax_config
 import npswf_tpu.engine.pipeline as jax_pipeline
 import npswf_tpu.golden.reference as jax_reference
+import npswf_tpu.golden.searchhighres_decimal as jax_decimal
 import npswf_tpu.io.decode as jax_decode
 import npswf_tpu.io.merge as jax_merge
 import npswf_tpu.io.rawstream as jax_rawstream
 import npswf_tpu.io.writer as jax_writer
 import npswf_tpu.runtime.executor as jax_executor
 import npswf_tpu.tools.cli as jax_cli
+import npswf_tpu.tools.convert_root as jax_convert_root
+import npswf_tpu.tools.convert_wf_to_root as jax_convert_wf_to_root
+import npswf_tpu.tools.cpu_baseline as jax_cpu_baseline
+import npswf_tpu.tools.derive_fixtures as jax_derive_fixtures
+import npswf_tpu.tools.diagnostics as jax_diagnostics
+import npswf_tpu.tools.extract_templates as jax_extract_templates
+import npswf_tpu.tools.parity as jax_parity
 import npswf_tpu.tools.plotstats as jax_plotstats
+import npswf_tpu.tools.solver_audit as jax_solver_audit
 import npswf_tpu.utils.synthetic as jax_synthetic
 import npswf_tpu.utils.timers as jax_timers
 import npswf_tpu_torch.core.calibration as calibration
 import npswf_tpu_torch.core.config as config
 import npswf_tpu_torch.engine.pipeline as pipeline
 import npswf_tpu_torch.golden.reference as reference
+import npswf_tpu_torch.golden.searchhighres_decimal as decimal_oracle
 import npswf_tpu_torch.io.decode as decode
 import npswf_tpu_torch.io.merge as merge
 import npswf_tpu_torch.io.rawstream as rawstream
 import npswf_tpu_torch.io.writer as writer
 import npswf_tpu_torch.runtime.executor as executor
 import npswf_tpu_torch.tools.cli as cli
+import npswf_tpu_torch.tools.convert_root as convert_root
+import npswf_tpu_torch.tools.convert_wf_to_root as convert_wf_to_root
+import npswf_tpu_torch.tools.cpu_baseline as cpu_baseline
+import npswf_tpu_torch.tools.derive_fixtures as derive_fixtures
+import npswf_tpu_torch.tools.diagnostics as diagnostics
+import npswf_tpu_torch.tools.extract_templates as extract_templates
+import npswf_tpu_torch.tools.parity as parity
 import npswf_tpu_torch.tools.plotstats as plotstats
+import npswf_tpu_torch.tools.solver_audit as solver_audit
 import npswf_tpu_torch.utils.synthetic as synthetic
 import npswf_tpu_torch.utils.timers as timers
 
@@ -56,7 +77,14 @@ PAIRS = [(config, jax_config), (calibration, jax_calibration),
          (synthetic, jax_synthetic), (rawstream, jax_rawstream),
          (decode, jax_decode), (writer, jax_writer), (merge, jax_merge),
          (reference, jax_reference), (plotstats, jax_plotstats),
-         (timers, jax_timers), (executor, jax_executor), (cli, jax_cli)]
+         (timers, jax_timers), (executor, jax_executor), (cli, jax_cli),
+         (decimal_oracle, jax_decimal), (parity, jax_parity),
+         (diagnostics, jax_diagnostics), (cpu_baseline, jax_cpu_baseline),
+         (convert_root, jax_convert_root),
+         (convert_wf_to_root, jax_convert_wf_to_root),
+         (extract_templates, jax_extract_templates),
+         (derive_fixtures, jax_derive_fixtures),
+         (solver_audit, jax_solver_audit)]
 
 # definitions of those modules that are ported, not copied, and why
 PORTED = {
@@ -81,10 +109,21 @@ PORTED = {
                             "JAX's asynchronous dispatch; a device argument; "
                             "no mesh yet",
     "cli._device": "the CUDA device unless --cpu",
-    "cli.cmd_run": "the device check, no mesh yet",
+    "cli.cmd_run": "the device check, --config, no mesh yet",
+    "cli._with_config_file": "run's --config (model_aux from a JSON file)",
+    "cli._make_delegate": "every tool's main takes its arguments (the port's "
+                          "cpu_baseline too)",
     "cli.synth_records": "synth's streams and hits, shared with chip_smoke.py",
     "cli.cmd_synth": "no JAX set-up; its records come from synth_records",
-    "cli.build_parser": "run, synth and validate only, with the port's help",
+    "cli.build_parser": "the port's help, no mesh options and no throughput "
+                        "probes yet",
+    "cli.cmd_diagnostics": "no JAX set-up; a clear exit without matplotlib",
+    "cpu_baseline.main": "takes the time budget and the block minimum",
+    "solver_audit._host": "device tensors to numpy",
+    "solver_audit.build_fit_inputs": "the pre-fit stages in torch on a device",
+    "solver_audit.audit_signal": "a device argument; the pipeline's model "
+                                 "(the planes, on K3)",
+    "solver_audit.main": "--cpu picks the device; no JAX set-up",
 }
 
 

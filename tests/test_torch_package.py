@@ -216,15 +216,17 @@ def test_cuda_tensors_launch_the_kernels(card, dtype, route):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 33, 257])
 @pytest.mark.parametrize("P,max_pulses", [(1, 1), (2, 2), (5, 5), (10, 6),
-                                          (12, 6)])
+                                          (12, 6), (13, 13), (14, 7),
+                                          (15, 15)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_lm_kernel_bit_equal_to_plain(card, dtype, P, max_pulses, n):
     """K3 against its plain version on retry-shaped calls (stage-2 cap,
     mixed budgets with some at 0, some inactive lanes, a partial last
-    block): u, chi2, conv, n_iter and lambda equal on every lane."""
+    block): u, chi2, conv, n_iter and lambda equal on every lane. Widths
+    above 12 draw their inputs at maxwfpulses = P."""
     from chip_smoke import lm_equal, lm_retry_inputs
     from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel, lm_solve_plain
-    cfg = NPSConfig(compute_dtype="float32")
+    cfg = NPSConfig(compute_dtype="float32", maxwfpulses=max(P, 12))
     cal = synthetic_calibration(cfg, seed=1)
     args = lm_retry_inputs(torch, cfg, cal, n, max_pulses, P, 61 + n + P,
                            dtype, card)
@@ -284,7 +286,7 @@ def test_system_kernels_launch_once(card, P, max_pulses):
 
 @pytest.mark.cuda
 def test_kernels_refuse_widths_they_do_not_take(card):
-    """K3 is compiled for 1..12 pulses and K6 takes a width while one
+    """K3 is compiled for 1..15 pulses and K6 takes a width while one
     lane's tile fits a block (61 at K = 90): wider calls raise before any
     launch."""
     from npswf_tpu_torch.fit.eval_kernel import SEG, fused_system
@@ -294,13 +296,13 @@ def test_kernels_refuse_widths_they_do_not_take(card):
 
     def z(*shape):
         return torch.zeros(shape, dtype=torch.float64, device=card)
-    for P, run in ((13, "lm"), (62, "system")):
+    for P, run in ((16, "lm"), (62, "system")):
         M = 1 + 2 * P
         mask = torch.ones((N, M), dtype=torch.bool, device=card)
         args = (z(N, 4, SEG), z(N), z(N, K), z(N, K), z(N, M), z(N, M),
                 z(N, M), z(N, M), mask)
         kernels.reset_counts()
-        with pytest.raises(ValueError, match="1..12" if run == "lm" else "tile"):
+        with pytest.raises(ValueError, match="1..15" if run == "lm" else "tile"):
             if run == "lm":
                 lm_solve_kernel(cfg, *args, mask[:, 0], 10, 1e-3)
             else:

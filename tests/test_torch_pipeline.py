@@ -87,14 +87,19 @@ BUCKET_WIDTHS = {
     "mid5": (dict(fit_small_pulses=1, fit_mid_pulses=5), ((1, 1, 1), (5, 2, 5))),
     "wide10": (dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=10),
                ((2, 1, 2), (10, 3, 10))),
+    # K3 up to its widest instantiation: the wide bucket at P = 15 on the
+    # default route (pallas_lm_max_pulses raised with it)
+    "wide15": (dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=15,
+                    pallas_lm_max_pulses=15), ((2, 1, 2), (15, 3, 15))),
 }
 
 
 @pytest.mark.parametrize("case", list(BUCKET_WIDTHS))
 def test_process_batch_bucket_widths_match_jax_fp64(small_cfg, small_cal, case):
-    """Buckets of width 5 and 10 (a middle bound of 5; the wide bucket at
-    maxwfpulses=10) carry lanes, and the default route matches the JAX
-    package: decisions and counters exact, floats to 1e-9 relative."""
+    """Buckets of width 5, 10 and 15 (a middle bound of 5; the wide bucket
+    at maxwfpulses=10, and at 15 with pallas_lm_max_pulses=15, the widest
+    K3 takes) carry lanes, and the default route matches the JAX package:
+    decisions and counters exact, floats to 1e-9 relative."""
     changes, buckets = BUCKET_WIDTHS[case]
     ours, ref = _run_both(small_cfg.replace(**changes), small_cal, torch.float64)
     n = ours["wfnpulse"][ours["gate"]]
