@@ -15,7 +15,7 @@ bounds that route lanes to fit widths 1, 2, 4, 5, 10 and 12, on the
 default route (K3) and on ``use_fused_system`` (K6), each bucket's
 decisions against the plain path. Then the ``[segment]`` phase drives the production entry
 point, ``runtime.executor.run_segment``, from raw segments built in memory
-to WF files: 4,096 events read out sparsely (occupancy 0.03: the slab
+to WF files: 2,048 events read out sparsely (occupancy 0.03: the slab
 packet, the present-lane upload), once plain and once in chains of 4, and
 512 dense events (the dense packet), with the launch counts of each run
 held to those of its batches run alone (plus the batches its dense
@@ -24,21 +24,29 @@ on the first two batches, the stage medians; then the CLI (synth, run, validate)
 subprocess. The ``[models]`` phase fits the dense batch with the gaussian
 and biexp families (K1 and K2, then the generic loop in plain PyTorch),
 against the plain path, timed, and a batch of true gaussian pulses against
-its truth; ``[k3-wide]`` holds K3 at 13-15 pulses to its plain version and
-runs a pileup batch whose widest bucket is 15 pulses; ``[tools]`` runs the
-CLI's parity, extract-templates (then run with the extracted calibration),
+its truth; ``[k3-wide]`` holds K3 at 13-15 pulses (compiled widths) and at
+16, 24 and the widest a block's shared memory holds (the wide unit, P at
+run time) to its plain version, refuses one more, and runs a pileup batch
+whose widest bucket is 15 pulses, then 24; ``[tools]`` runs the CLI's
+parity, extract-templates (then run with the extracted calibration),
 solver-audit and cpu-baseline in subprocesses, and the audit's fit in
-process with its launches counted. It prints one JSON line of kernel
-records (times, launches, bounds), one each of the segment runs, the
-buckets, the model families, K3's wide widths and the tools, the card's
-name and power limit, and a last JSON line ``{"ok": true, "device":
-{...}}``. Any
+process with its launches counted. ``[mesh]`` runs the dense batch over a
+world of one rank on NCCL and over gloo ranks sharing the card (2x1, 1x2,
+2x2), every field against one device and K1-K3 launched on every rank,
+then the dense segment through ``run_segment`` on a 2x2 mesh, its WF file
+against the single-device one; ``[probes]`` runs measure-link, perf-probe
+floor, e2e-bench and glue-profile through the CLI. It prints one JSON line
+of kernel records (times, launches, bounds), one each of the segment runs,
+the buckets, the model families, K3's wide widths, the tools, the mesh and
+the probes, the card's name and power limit, and a last JSON line
+``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero. It imports no jax. Without a CUDA device, or
 outside the repository, it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --time-systems ROOT`` only times K6 and K7 (the
-wrapper and the kernel alone) with the package of the checkout at ROOT,
-to compare two checkouts on one card in turns.
+wrapper and the kernel alone), and ``--time-route ROOT`` only the default
+route's batch, with the package of the checkout at ROOT, to compare two
+checkouts on one card in turns.
 """
 from __future__ import annotations
 
@@ -61,7 +69,7 @@ FAIL_RATE_MAX = 0.02
 # the [segment] phase: (events, occupancy, pileup, seed, sparse readout);
 # segments are built in chunks of SEG_CHUNK events and run in batches of
 # SEG_BATCH, SEG_CHAIN batches a call for the chained run
-SEGMENTS = {"sparse": (4096, 0.03, 0.3, 101, True),
+SEGMENTS = {"sparse": (2048, 0.03, 0.3, 101, True),
             "dense": (512, 1.0, 0.25, 7, False)}
 SEG_CHUNK = 64
 SEG_BATCH = 64
@@ -70,12 +78,22 @@ CLI_EVENTS = 32
 # [models]: the families and their shape constants (tests/test_models.py)
 MODEL_FAMILIES = {"gaussian": (("width", 3.5),),
                   "biexp": (("tau_r", 1.8), ("tau_d", 9.0))}
-# [k3-wide]: (P, most pulses a lane) of the kernel checks, their lane
-# count, and the bucket bounds that send 3-4 pulse lanes to width 15
-WIDE_WIDTHS = ((13, 13), (14, 7), (15, 15))
+# [k3-wide]: (P, most pulses a lane) of the kernel checks ("limit": the
+# widest P a lane of the type fits, lm_max_pulses), their lane count, the
+# iterations a call at the limit is cut to (the plain version's
+# substitutions take M^2 launches an iteration), and the bucket bounds that
+# send 3-4 pulse lanes to width 15, then to width 24 (K3's wide unit)
+WIDE_WIDTHS = ((13, 13), (14, 7), (15, 15), (16, 16), (24, 8), ("limit", 8))
 WIDE_LANES = 4096
+WIDE_LIMIT_ITERS = 4
 WIDE_BUCKETS = dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=15,
                     pallas_lm_max_pulses=15)
+WIDE_BUCKETS_24 = dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=24,
+                       pallas_lm_max_pulses=24)
+# [mesh]: the mesh shapes of gloo ranks sharing cuda:0 (a world of one rank
+# on NCCL runs first), and the shape of the segment run
+MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
+MESH_SEGMENT_SHAPE = (2, 2)
 # [tools]: events of the extraction segment and of each audit ensemble
 EXTRACT_EVENTS = 16
 AUDIT_EVENTS = 1
@@ -128,8 +146,12 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+T_START = time.perf_counter()
+
+
 def say(phase, msg):
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase}] {msg} [t {time.perf_counter() - T_START:.1f} s]",
+          flush=True)
 
 
 def cuda_ms(torch, fn, reps):
@@ -956,11 +978,16 @@ def segment_chunk(args):
                          pres=truth.npulse > 0 if sparse else None)
 
 
+_BUILT = {}   # the segments built so far ([mesh] reuses the dense one)
+
+
 def build_segment_in_memory(name):
     """A raw segment of SEGMENTS[name], SEG_CHUNK events a chunk, the
     chunks built in parallel worker processes (spawned, stopped on exit)
-    and never written to disk. The calibration is synthetic_calibration(
-    NPSConfig(), seed=1)."""
+    and never written to disk, once a run. The calibration is
+    synthetic_calibration(NPSConfig(), seed=1)."""
+    if name in _BUILT:
+        return _BUILT[name]
     from npswf_tpu_torch.core.config import NPSConfig
     from npswf_tpu_torch.io.rawstream import build_segment
     n_events, occupancy, pileup, seed, sparse = SEGMENTS[name]
@@ -971,9 +998,11 @@ def build_segment_in_memory(name):
         parts = pool.map(segment_chunk, jobs)
     streams = [st for s_, _ in parts for st in s_]
     hits = [h for _, h_ in parts for h in h_]
-    return build_segment(NPSConfig(), streams, hits,
-                         evt=np.arange(1, n_events + 1, dtype=np.float64),
-                         runnum=np.full(n_events, 3000.0))
+    _BUILT[name] = build_segment(
+        NPSConfig(), streams, hits,
+        evt=np.arange(1, n_events + 1, dtype=np.float64),
+        runnum=np.full(n_events, 3000.0))
+    return _BUILT[name]
 
 
 def replay_batches(torch, cfg, cal, seg, dev, tmp):
@@ -1393,24 +1422,37 @@ def check_models(torch, cfg, cal, calib, batch, dev, card):
 
 
 def check_k3_wide(torch, dev, card):
-    """The [k3-wide] phase: K3 at P = 13-15 on check_lm's inputs
-    (WIDE_LANES lanes; tests/test_torch_package.py has the retry-shaped
-    calls at these widths), both types,
-    u, chi2, conv, n_iter and lambda equal to its plain version on every
-    lane; P = 16 refused before any launch; then the pileup batch with
-    its widest bucket at 15 pulses (WIDE_BUCKETS) through check_bucket_run."""
+    """The [k3-wide] phase: K3 at P = 13-15 (compiled widths), 16, 24 and
+    the limit of each type (the wide unit, P at run time) on check_lm's
+    inputs (WIDE_LANES lanes; the calls at the limit cut to
+    WIDE_LIMIT_ITERS iterations; tests/test_torch_package.py has the
+    retry-shaped calls), both types, u, chi2, conv, n_iter and lambda equal
+    to its plain version on every lane; the limit + 1 refused before any
+    launch; K3 timed at P = 24 fp32; then the pileup batch with its widest
+    bucket at 15 pulses (WIDE_BUCKETS), and at 24 (WIDE_BUCKETS_24),
+    through check_bucket_run."""
     from npswf_tpu_torch import kernels
     from npswf_tpu_torch.core.calibration import synthetic_calibration
     from npswf_tpu_torch.core.config import NPSConfig
-    from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel, lm_solve_plain
-    cfg = NPSConfig(compute_dtype="float32", maxwfpulses=15)
-    cal = synthetic_calibration(cfg, seed=1)
-    equal = {}
-    for P, max_pulses in WIDE_WIDTHS:
+    from npswf_tpu_torch.fit.lm_kernel import (lm_max_pulses, lm_solve_kernel,
+                                               lm_solve_plain)
+    base = NPSConfig(compute_dtype="float32")
+    cal = synthetic_calibration(base, seed=1)
+    K = base.nfitbins
+    limits = {dt: lm_max_pulses(K, dt) for dt in (torch.float64, torch.float32)}
+    say("k3-wide", f"widest K3 width at K = {K}: fp64 {limits[torch.float64]}, "
+                   f"fp32 {limits[torch.float32]} (a lane's arrays in one "
+                   f"block's shared memory; {card})")
+    equal, timed = {}, {}
+    for width, max_pulses in WIDE_WIDTHS:
         for dt in (torch.float64, torch.float32):
+            P = limits[dt] if width == "limit" else width
+            cfg = base.replace(maxwfpulses=max(P, 15))
             n = WIDE_LANES
-            args = lm_inputs(torch, cfg, cal, n, max_pulses, P, 91 + P + n,
-                             dt, dev)
+            args = list(lm_inputs(torch, cfg, cal, n, max_pulses, P,
+                                  91 + P + n, dt, dev))
+            if width == "limit":
+                args[10] = WIDE_LIMIT_ITERS
             t0 = time.perf_counter()
             k = lm_solve_kernel(cfg, *args)
             torch.cuda.synchronize()
@@ -1421,28 +1463,44 @@ def check_k3_wide(torch, dev, card):
             n_eq = lm_equal(torch, k, p)
             its = p[3][args[9]]
             say("k3-wide", f"P={P} {dt} {n} lanes (up to {max_pulses} "
-                           f"pulses, {int(p[2].sum())} converged, n_iter "
+                           f"pulses, at most {args[10]} iterations, "
+                           f"{int(p[2].sum())} converged, n_iter "
                            f"{int(its.min())}..{int(its.max())}): u, chi2, "
                            f"conv, n_iter and lambda equal on {n_eq}; "
                            f"first call {(t1 - t0) * 1e3:.1f} ms, plain "
                            f"{(t2 - t1) * 1e3:.1f} ms ({card})")
             check(n_eq == n, f"K3 not bit-equal at P={P} {dt} n={n}")
             equal[f"P={P} {dt} n={n}"] = n_eq
-    args = lm_inputs(torch, cfg.replace(maxwfpulses=16), cal, 2, 2, 16, 5,
-                     torch.float32, dev)
-    kernels.reset_counts()
-    try:
-        lm_solve_kernel(cfg, *args)
-        refused = False
-    except ValueError:
-        refused = True
-    check(refused and not kernels.launches, "K3 took P=16")
-    say("k3-wide", "P=16 refused before any launch")
-    base, calib, batch = pileup_batch(torch, dev)
-    run = check_bucket_run(torch, "k3-wide", f"default {WIDE_BUCKETS}",
-                           base.replace(**WIDE_BUCKETS), calib, batch,
-                           (2, 15), "lm_solve", card)
-    return {"bit_equal_lanes": equal, "batch": dict(changes=WIDE_BUCKETS, **run)}
+            if P == 24 and dt == torch.float32:
+                ms = cuda_ms(torch, lambda: lm_solve_kernel(cfg, *args), 3)
+                timed["P=24 fp32"] = {"ms": ms, "lanes": n,
+                                      **lm_bound(torch, cfg, args, k)}
+                say("k3-wide", f"K3 at P=24 fp32, {n} lanes: {ms:.4f} ms a "
+                               f"call, bound {timed['P=24 fp32']['bound_ms']:.4f}"
+                               f" ms ({card})")
+            del args, k, p
+    for dt, limit in limits.items():
+        P = limit + 1
+        cfg = base.replace(maxwfpulses=P)
+        args = lm_inputs(torch, cfg, cal, 2, 2, P, 5, dt, dev)
+        kernels.reset_counts()
+        try:
+            lm_solve_kernel(cfg, *args)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and not kernels.launches, f"K3 took P={P} {dt}")
+        say("k3-wide", f"P={P} {dt} (the limit + 1) refused before any launch")
+    pbase, calib, batch = pileup_batch(torch, dev)
+    runs = {}
+    for bounds in (WIDE_BUCKETS, WIDE_BUCKETS_24):
+        P = bounds["maxwfpulses"]
+        runs[P] = dict(changes=bounds, **check_bucket_run(
+            torch, "k3-wide", f"default {bounds}", pbase.replace(**bounds),
+            calib, batch, (2, P), "lm_solve", card))
+    return {"limits": {str(dt): v for dt, v in limits.items()},
+            "bit_equal_lanes": equal, "timed": timed,
+            "batch": runs[15], "batch_24": runs[24]}
 
 
 def host_cpu():
@@ -1549,6 +1607,122 @@ def check_tools(torch, dev, card, dense_wf):
     return summary
 
 
+# ---------------------------------------------------------------------
+# the mesh and the probes
+# ---------------------------------------------------------------------
+def check_mesh(torch, card, dense_wf):
+    """The [mesh] phase: the mesh's dry run (parallel.dryrun.dryrun) of the
+    dense bench batch over a world of one rank on NCCL and over gloo ranks
+    sharing cuda:0 (MESH_SHAPES), each against process_batch on the card:
+    every per-block field and counter equal, value for value (every
+    kernel works per lane), enertot/integtot within the rounding of their
+    sum over the blocks (the card's row reduction picks its order by the
+    shard's event count), and K1, K2 and K3
+    launched on every rank with no plain call; then the dense segment
+    through run_segment under MESH_SEGMENT_SHAPE, its WF file equal to the
+    single-device file ``dense_wf`` of [segment]. Four ranks on one card
+    share it: their times are no scaling figure."""
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.io.writer import read_wf
+    from npswf_tpu_torch.parallel.dryrun import dryrun
+    from npswf_tpu_torch.parallel.mesh import make_mesh
+    from npswf_tpu_torch.runtime.executor import run_segment
+    cfg = NPSConfig(compute_dtype="float32")
+    cal = synthetic_calibration(cfg, seed=1)
+    _, batch = bench_batch(torch, cfg, cal, torch.device("cpu"))
+    meshes = [("nccl", 1, 1)] + [("gloo", nd, nb) for nd, nb in MESH_SHAPES]
+    try:
+        summary = dryrun(cfg, cal, batch, meshes, ["cuda:0"] * 4)
+    except AssertionError as e:
+        raise SmokeFailure(f"[mesh] {e}")
+    for tag, m in summary["meshes"].items():
+        say("mesh", f"{tag}: {len(m['launches'])} ranks on cuda:0, the dense "
+                    f"batch (E={E_BENCH}) in {m['seconds_with_start']:.1f} s "
+                    f"with the ranks' start (the {len(meshes)} meshes at "
+                    f"once); every per-block field and counter equal to "
+                    f"process_batch on the card, the event totals within "
+                    f"{m['totals_max_diff']:.3g}; launches a rank "
+                    f"{m['launches']}; counters "
+                    f"{summary['fit_success']} ok, {summary['fit_failures']} "
+                    f"failed ({card})")
+    seg = build_segment_in_memory("dense")
+    nd, nb = MESH_SEGMENT_SHAPE
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mesh.npz")
+        t0 = time.perf_counter()
+        # check_segments' configuration and calibration
+        res = run_segment(NPSConfig(), synthetic_calibration(NPSConfig(), seed=1),
+                          seg, out, batch_size=SEG_BATCH,
+                          mesh=make_mesh(cfg, nd, nb,
+                                         devices=["cuda:0"] * (nd * nb),
+                                         backend="gloo"))
+        wall = time.perf_counter() - t0
+        a, b = read_wf(out), read_wf(dense_wf)
+        differ = [k for k in b if k not in a or not np.array_equal(a[k], b[k])
+                  or a[k].dtype != b[k].dtype]
+        with open(out, "rb") as f1, open(dense_wf, "rb") as f2:
+            same_bytes = f1.read() == f2.read()
+    say("mesh", f"run_segment on {seg.n_events} dense events under "
+                f"{nd}x{nb} gloo ranks sharing cuda:0: {res.blocks_per_sec:.0f} "
+                f"blocks/s on rank 0's clock ({res.wall_time:.3f} s; "
+                f"{wall:.1f} s with the ranks' start), fits ok "
+                f"{res.n_fit_success}, failed {res.n_fit_failure}; columns "
+                f"differing from the single-device file: {differ}; bytes "
+                f"equal: {same_bytes}. Four ranks on one card are no scaling "
+                f"figure ({card})")
+    check(not differ, f"[mesh] the mesh's WF file differs in {differ}")
+    summary["segment"] = {"shape": [nd, nb], "events": seg.n_events,
+                          "blocks_per_s": res.blocks_per_sec,
+                          "wall_s": res.wall_time, "wall_with_start_s": wall,
+                          "bytes_equal": same_bytes, "card": card}
+    return summary
+
+
+PROBE_CALLS = {   # the four probes at small settings, through the CLI
+    "measure-link": ("measure-link", "--", "--n", "9", "--size-mb", "64"),
+    "perf-probe floor": ("perf-probe", "--", "floor", "--events", "64",
+                         "--iters", "4", "--chain", "1"),
+    "e2e-bench": ("e2e-bench", "--", "--events", "256", "--mode", "both",
+                  "--chain-batches", "4"),
+    "glue-profile": ("glue-profile", "--", "--events", "64", "--k1", "1",
+                     "--k2", "4", "--iters", "2"),
+}
+
+
+def check_probes(card):
+    """The [probes] phase: each probe through the CLI in a subprocess on
+    the card; each exits 0 and its last line is JSON."""
+    summary = {}
+    for name, argv in PROBE_CALLS.items():
+        t0 = time.perf_counter()
+        out = cli_call("probes", *argv)
+        try:
+            summary[name] = json.loads(out.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            raise SmokeFailure(f"[probes] {name} printed no JSON last line")
+        summary[name + " seconds"] = time.perf_counter() - t0
+    link = summary["measure-link"]
+    floor = summary["perf-probe floor"]
+    say("probes", f"measure-link: H2D {link['h2d']['median_GBps']:.3f} GB/s, "
+                  f"D2H {link['d2h']['median_GBps']:.3f} GB/s (pinned, 64 MB, "
+                  f"median of 9); dense 64-event batch transfer floor "
+                  f"{link['dense_batch']['transfer_floor_ms']:.3f} ms ({card})")
+    say("probes", "perf-probe floor: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in floor.items() if k != "probe")
+        + f" ({card})")
+    say("probes", "e2e-bench: " + "; ".join(
+        f"{r['mode']} {r['e2e_blocks_per_sec']:.0f} blocks/s end to end, "
+        f"device-only {r['device_blocks_per_sec']:.0f}" for r in
+        summary["e2e-bench"]) + f" ({card})")
+    glue = summary["glue-profile"]
+    say("probes", "glue-profile ms a batch: " + ", ".join(
+        f"{k} {glue[k]:.3f}" for k in ("full", "fit", "search", "diag",
+                                       "glue_direct", "fit_stage3",
+                                       "fit_stage2")) + f" ({card})")
+    return summary
+
+
 def time_systems(torch, card):
     """K6 at P = 2 and 12 and K7 at P = 2, fp32, N = 69,120, as a wrapper
     call (CUDA events) and as the kernel alone (the profiler's device
@@ -1580,6 +1754,37 @@ def time_systems(torch, card):
     return 0
 
 
+def time_route(torch, card):
+    """The default route's process_batch on the dense bench batch, fp32:
+    host clock around one synchronized batch, each of 21 after 3 warm-ups,
+    for whichever package the path finds first: run it once for each of
+    two checkouts, in turns, to compare them on one card."""
+    from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.core.params import calib_to_torch
+    from npswf_tpu_torch.engine.pipeline import process_batch
+    cfg = NPSConfig(compute_dtype="float32")
+    cal = synthetic_calibration(cfg, seed=1)
+    dev = torch.device("cuda", 0)
+    kernels.library()
+    _, batch = bench_batch(torch, cfg, cal, dev)
+    calib = calib_to_torch(cal.device_arrays(cfg), dev, torch.float32)
+
+    def one():
+        t0 = time.perf_counter()
+        process_batch(cfg, calib, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    for _ in range(3):
+        one()
+    ms = [one() for _ in range(21)]
+    print(json.dumps({"time_route": {"median_ms": float(np.median(ms)),
+                                     "min_ms": min(ms), "ms": ms},
+                      "package": kernels.__file__, "card": card}))
+    return 0
+
+
 def main() -> int:
     try:
         import torch
@@ -1593,11 +1798,12 @@ def main() -> int:
         print("chip_smoke: run it from the repository (npswf_tpu_torch/ missing)",
               file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--time-systems"]:
-        # python3 chip_smoke.py --time-systems ROOT: the package of the
-        # checkout at ROOT (built there)
+    timers = {"--time-systems": time_systems, "--time-route": time_route}
+    if sys.argv[1:2] and sys.argv[1] in timers:
+        # python3 chip_smoke.py --time-systems|--time-route ROOT: the
+        # package of the checkout at ROOT (built there)
         sys.path.insert(0, os.path.abspath(sys.argv[2]))
-        return time_systems(torch, card_line())
+        return timers[sys.argv[1]](torch, card_line())
     sys.path.insert(0, REPO)
     try:
         return run(torch)
@@ -1690,6 +1896,12 @@ def run(torch) -> int:
         tools = check_tools(torch, dev, card,
                             os.path.join(wf_dir, "dense_1.npz"))
         say("tools", f"phase done in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh = check_mesh(torch, card, os.path.join(wf_dir, "dense_1.npz"))
+        say("mesh", f"phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    probes = check_probes(card)
+    say("probes", f"phase done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 7. records -----------------------------------------------------
     for r in records.values():
@@ -1707,6 +1919,8 @@ def run(torch) -> int:
     print(json.dumps({"models": models}))
     print(json.dumps({"k3_wide": k3_wide}))
     print(json.dumps({"tools": tools}))
+    print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"probes": probes}))
     say("done", f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,19 @@ mirrors its layout and names so each counterpart is easy to find:
 - ``fit``          — error model, Cholesky, the bounded LM fit with its
                      stage-2/stage-3 retry ladder, and the system
                      evaluations of its generic loop (``eval_kernel``)
-- ``engine``       — ``process_batch`` (one event batch, single device),
-                     the block diagnostics, the writer packets (dense and
-                     slab) and the chains of batches
+- ``engine``       — ``process_batch`` (one event batch on one device, or
+                     one rank's shard of it), the block diagnostics, the
+                     writer packets (dense and slab) and the chains of
+                     batches
+- ``parallel``     — the (data, block) mesh on ``torch.distributed``: one
+                     process a rank, the cluster gate's one-row halos
+                     exchanged within a block group, the counters summed
+                     over the world, the global output gathered on rank 0
+                     (``mesh``), the axes ``process_batch`` takes
+                     (``axis``) and a self-checking dry run (``dryrun``).
+                     On the CPU: gloo ranks (``run --cpu --devices N``);
+                     on cards: NCCL, one card a rank; ranks that share a
+                     card: gloo, collectives staged through the host
 - ``io``           — copies of the reference's host I/O: raw segments,
                      their decode (``io/native/decode.cpp``, built with g++
                      into ``build/npswf_tpu_torch/``; numpy on request), the
@@ -26,23 +36,27 @@ mirrors its layout and names so each counterpart is easy to find:
                      SearchHighRes (copies)
 - ``runtime``      — ``executor.run_segment``: a raw segment to a WF file,
                      two stage workers with a CUDA stream each, ordered
-                     fetch, a writer thread, resume
+                     fetch, a writer thread, resume; with a mesh, its ranks
+                     run the batches and rank 0 writes
 - ``tools``        — ``cli`` (``python -m npswf_tpu_torch.tools.cli
                      run|synth|validate|parity|diagnostics`` and the
                      pass-through tools), copies of the host tools
                      (``plotstats``, ``parity``, ``diagnostics``,
                      ``cpu_baseline``, ``convert_root``,
                      ``convert_wf_to_root``, ``extract_templates``,
-                     ``derive_fixtures``) and ``solver_audit`` (its fit on
-                     the card)
-- ``utils.timers`` — stage timers (a copy) and a ``torch.profiler`` trace
+                     ``derive_fixtures``), ``solver_audit`` (its fit on
+                     the card) and the throughput probes (``e2e_bench``,
+                     ``glue_profile``, ``perf_probe``, ``measure_link``)
+- ``utils.timers`` — stage timers (a copy) and a ``torch.profiler`` trace;
+                     ``utils.timing``: the probes' CUDA-event timing
 - ``kernels``      — builds the CUDA library from ``csrc/`` with nvcc and
                      keeps the launch counters
 - ``csrc``         — the hand-written Hopper kernels: matched filter
                      (``matched_filter.cu``), peak search up to its sort
                      operands or its top-P slots (``search.cu``), the
                      whole-loop LM stage (``lm.cuh``; ``lm.cu`` dispatches
-                     to its widths, compiled in groups in ``lm_p*.cu``) and
+                     to its widths, compiled in groups in ``lm_p*.cu``, and
+                     above 15 pulses to ``lm_wide.cu``, P at run time) and
                      the generic loop's system evaluations (``eval.cu``)
 
 It imports torch and numpy, never jax and nothing of ``npswf_tpu``: the
@@ -56,7 +70,8 @@ public functions runs the plain versions on any device (the reference the
 kernels are held against on the card). The entry points (``run_segment``,
 the CLI's ``run`` and ``solver-audit``) use the CUDA device unless the
 caller asks for the CPU (``device="cpu"``, ``--cpu``); without a card they
-raise.
+raise. So do the probes (``e2e-bench``, ``glue-profile``, ``perf-probe``,
+``measure-link``), and a mesh names its devices.
 
 ``NPSConfig`` knobs that change results are honoured, and so are the four
 that route work onto kernels as the reference does: ``use_pallas_lm`` with

@@ -1,5 +1,6 @@
 // K3's entry points: the width dispatch and the C interface (the kernel is
-// in lm.cuh, its instantiations in lm_p*.cu).
+// in lm.cuh, its instantiations in lm_p*.cu, the wider widths in
+// lm_wide.cu, which also holds npswf_lm_max_pulses).
 #include "lm.cuh"
 
 NPSWF_LM_WIDTH(extern, 1)
@@ -20,11 +21,16 @@ NPSWF_LM_WIDTH(extern, 15)
 
 namespace npswf {
 
+// the widths above kMaxP, P at run time (lm_wide.cu)
+template <typename T>
+cudaError_t launch_wide(int p, const void* const* in, void* const* out,
+                        const LMParams& prm, cudaStream_t st);
+
 template <typename T, int P>
 static cudaError_t dispatch_from(int p, const void* const* in, void* const* out,
                                  const LMParams& prm, cudaStream_t st) {
   if constexpr (P > kMaxP) {
-    return cudaErrorInvalidValue;
+    return launch_wide<T>(p, in, out, prm, st);
   } else {
     if (p == P) return launch<T, P>(in, out, prm, st);
     return dispatch_from<T, P + 1>(p, in, out, prm, st);
@@ -32,9 +38,6 @@ static cudaError_t dispatch_from(int p, const void* const* in, void* const* out,
 }
 
 }  // namespace npswf
-
-// Pulse counts with a compiled instantiation: 1..15.
-extern "C" int npswf_lm_supported(int p) { return p >= 1 && p <= npswf::kMaxP; }
 
 // in: coeffs, x0, yt, wt, u0, lo, hi, pseed, pmask, active, budget, lam0
 // out: u, chi2, conv, n_iter, edm, lam

@@ -55,7 +55,8 @@
 // Every pulse count from 1 to kMaxP has its own instantiation. They are
 // compiled in several translation units, lm_p*.cu, each a group of widths
 // (NPSWF_LM_WIDTH), so that the build compiles them in parallel; lm.cu
-// dispatches to them.
+// dispatches to them, and above kMaxP to lm_wide.cu (P at run time, a
+// thread owning every 32nd row, up to what a block's shared memory holds).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -452,7 +453,8 @@ cudaError_t launch(const void* const* in, void* const* out,
 }
 
 // Every pulse count from 1 to kMaxP, one instantiation each (the team's
-// solves hold one row of the M x M system a thread: M <= kTeam).
+// solves hold one row of the M x M system a thread: M <= kTeam); wider
+// widths run lm_wide.cu's kernel, P at run time.
 constexpr int kMaxP = 15;
 static_assert(1 + 2 * kMaxP <= kTeam, "the solves hold one row a thread");
 

@@ -19,7 +19,9 @@ BINMAX = 109
 
 
 def block_diagnostics(cfg: NPSConfig, signal: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """signal [..., B, T] -> dict of [..., B] diagnostics (+ [...] totals)."""
+    """signal [..., B, T] -> dict of [..., B] diagnostics (+ [...] totals;
+    ``ener_raw``, the window sums before the background, is what
+    ``enertot`` adds up)."""
     T = cfg.ntime
     dev = signal.device
     it = torch.arange(T, device=dev)
@@ -60,6 +62,7 @@ def block_diagnostics(cfg: NPSConfig, signal: torch.Tensor) -> Dict[str, torch.T
         "time": tmax.to(signal.dtype),
         "larg50": (max50 - min50).to(signal.dtype),
         "larg90": (max90 - min90).to(signal.dtype),
+        "ener_raw": ener_raw,
         "enertot": ener_raw.sum(dim=-1),
         "integtot": integ.sum(dim=-1),
     }

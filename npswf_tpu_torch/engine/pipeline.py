@@ -1,4 +1,4 @@
-"""The batched event pipeline on one device.
+"""The batched event pipeline on one device, or on one rank of a mesh.
 
 Counterpart of npswf_tpu/engine/pipeline.py::process_batch (the
 reference's ``analyze``, TEST_2.C:540-1300): one event batch runs as
@@ -38,6 +38,7 @@ from npswf_tpu_torch.fit.errors import error_model
 from npswf_tpu_torch.fit.lm import FitInputs, fit_waveforms
 from npswf_tpu_torch.ops.cluster_gate import cluster_gate
 from npswf_tpu_torch.ops.peak_search import find_pulses
+from npswf_tpu_torch.parallel.axis import Axis, require_axis
 
 
 class EventBatch(NamedTuple):
@@ -99,18 +100,27 @@ def _slot(mask: torch.Tensor) -> torch.Tensor:
 
 
 def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
-                  batch: EventBatch, block_axis: Optional[str] = None,
-                  block_shards: int = 1, reduce_axes: Tuple[str, ...] = (),
+                  batch: EventBatch, block_axis: Optional[Axis] = None,
+                  block_shards: int = 1, reduce_axes: Tuple[Axis, ...] = (),
                   plain: bool = False) -> PipelineOutput:
     """Run the full pipeline on one event batch on one device.
 
     ``calib`` is ``core.params.calib_to_torch`` of the calibration arrays.
     With ``plain=True`` every kernel's plain PyTorch version runs instead.
+
+    Inside a rank of a mesh (``parallel.mesh``) the batch and the
+    calibration are this rank's shard: ``block_axis`` is the block group
+    when the rows are split into ``block_shards`` shards (the cluster
+    gate's halo exchange; ``enertot``/``integtot`` summed over every block
+    of the group, in one device's order), and the five counters are
+    summed over every axis of ``reduce_axes``. Capacities act per shard,
+    on the local lanes, as in the JAX package.
     """
-    if block_axis is not None or block_shards != 1 or reduce_axes:
-        raise NotImplementedError(
-            "process_batch runs on one device: the torch.distributed mesh is "
-            "in ROADMAP Queue 1")
+    if block_axis is not None or block_shards > 1:
+        require_axis(block_axis, f"process_batch over {block_shards} block "
+                                 f"shard(s): block_axis")
+    for ax in reduce_axes:
+        require_axis(ax, "each of process_batch's reduce_axes")
     signal = batch.signal
     E, B, T = signal.shape
     P = cfg.maxwfpulses
@@ -161,7 +171,8 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
                                                   ps.amps, ps.valid)
 
     # ---- cluster gate ------------------------------------------------
-    gate = cluster_gate(cfg, signal, timeref, timerefacc).reshape(N)
+    gate = cluster_gate(cfg, signal, timeref, timerefacc, block_axis,
+                        block_shards).reshape(N)
     fit_active = flat_present & gate & (npulse > 0)
 
     # ---- pulse-count buckets: narrow (<= fit_small_pulses), middle
@@ -264,9 +275,22 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
     h1 = t_rel - timerefacc + corr[:, None] / cfg.dt            # ref :994
 
     diag = block_diagnostics(cfg, signal)
+    enertot, integtot = diag["enertot"], diag["integtot"]
+    if block_axis is not None:
+        # event totals span every block: the row shards' per-block values,
+        # gathered in block order and summed as one device sums them
+        enertot, integtot = (
+            torch.cat(block_axis.all_gather(diag[k]), dim=-1).sum(dim=-1)
+            for k in ("ener_raw", "integ"))
     n_succ = (fitted & converged).sum().to(torch.int32)
     n_fail = (fitted & ~converged).sum().to(torch.int32)
     n_high = (flat_present & (npulse > P - 2)).sum().to(torch.int32)
+    if reduce_axes:
+        counts = torch.stack([n_succ, n_fail, n_dropped.to(torch.int32),
+                              n_high, n_search_dropped])
+        for ax in reduce_axes:
+            counts = ax.all_reduce(counts)
+        n_succ, n_fail, n_dropped, n_high, n_search_dropped = counts.unbind()
 
     return PipelineOutput(
         wfnpulse=npulse.reshape(E, B),
@@ -285,7 +309,7 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
         h_mask=h_mask.reshape(E, B, P),
         ampl=diag["ampl"], ener=diag["ener"], integ=diag["integ"],
         bkg=diag["bkg"], noise=diag["noise"],
-        enertot=diag["enertot"], integtot=diag["integtot"],
+        enertot=enertot, integtot=integtot,
         n_fit_success=n_succ,
         n_fit_failure=n_fail,
         n_fit_dropped=n_dropped,

@@ -21,13 +21,13 @@ def cholesky_solve(A: torch.Tensor, b: torch.Tensor,
         col = torch.where(idx[None, :] >= j, S[:, :, j] / d[:, None], 0.0)
         L[:, :, j] = col
         S = S - col[:, :, None] * col[:, None, :]
-    # substitutions accumulate term by term, in the K3 kernel's order
-    y = torch.zeros_like(b)
-    for i in range(M):
-        acc = b[:, i]
-        for k in range(i):
-            acc = acc - L[:, i, k] * y[:, k]
-        y[:, i] = acc / L[:, i, i]
+    # substitutions accumulate term by term, in the K3 kernel's order; the
+    # forward one column by column (row i still subtracts k = 0, 1, ... in
+    # turn), so a solve is M (not M^2 / 2) launches of it
+    y = b.clone()
+    for k in range(M):
+        y[:, k] = y[:, k] / L[:, k, k]
+        y[:, k + 1:] = y[:, k + 1:] - L[:, k + 1:, k] * y[:, k:k + 1]
     x = torch.zeros_like(b)
     for i in range(M - 1, -1, -1):
         acc = y[:, i]

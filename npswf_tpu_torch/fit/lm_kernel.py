@@ -1,4 +1,5 @@
-"""K3 wrapper: one whole LM stage per lane on the card (csrc/lm.cuh, lm.cu).
+"""K3 wrapper: one whole LM stage per lane on the card (csrc/lm.cuh, lm.cu,
+lm_wide.cu).
 
 Replaces npswf_tpu/fit/pallas_lm.py::_lm_kernel (wrappers ``_lm_call`` and
 ``lm_solve_pallas``), with the signature and return of
@@ -8,6 +9,7 @@ tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -17,11 +19,28 @@ from npswf_tpu_torch import kernels
 from npswf_tpu_torch.fit.eval_kernel import SEG, system_plain_body
 from npswf_tpu_torch.fit.lm import CHOL_EPS, SAT_THRESH, lm_loop
 
-# The widest pulse count K3 is compiled for (csrc/lm.cuh, kMaxP): its team of
-# 32 threads holds one row of the M x M system a thread (M = 31 at P = 15),
-# and each width is its own instantiation; 12 is the default
-# pallas_lm_max_pulses.
-LM_MAX_PULSES = 15
+# Widths 1..LM_COMPILED_PULSES have an instantiation each (csrc/lm.cuh,
+# kMaxP: one row of the M x M system a thread of the 32-thread team); wider
+# ones run lm_wide.cu with P at run time, a thread owning every 32nd row, up
+# to lm_max_pulses. 12 is the default pallas_lm_max_pulses.
+LM_COMPILED_PULSES = 15
+
+
+def lm_max_pulses(K: int, dtype: torch.dtype, device=None) -> int:
+    """The widest pulse count K3 takes over K fit bins at ``dtype`` on
+    ``device`` (default the current card): a wide lane's arrays must fit
+    one block's shared memory (csrc/lm_wide.cu; at K = 90 on an H100, 71
+    in fp64 and 106 in fp32). Asked of the card once a (card, dtype, K)."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _max_pulses(index, dtype, int(K))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_pulses(index: int, dtype: torch.dtype, K: int) -> int:
+    with torch.cuda.device(index):
+        return int(kernels.library().npswf_lm_max_pulses(
+            kernels.dtype_code(dtype), K))
 
 
 def lm_solve_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
@@ -61,9 +80,12 @@ def lm_solve_kernel(cfg: NPSConfig, coeffs_pad: torch.Tensor,
     dev, dt = u0.device, u0.dtype
     K = y.shape[1]
     lib = kernels.library()
-    if M != 1 + 2 * P or not lib.npswf_lm_supported(P):
-        raise ValueError(f"LM kernel takes 1..{LM_MAX_PULSES} pulses (one "
-                         f"instantiation a width), not {P} (M = {M})")
+    # widths above the compiled ones must fit a block (asked once a card)
+    if (M != 1 + 2 * P or P < 1 or (P > LM_COMPILED_PULSES
+                                    and P > lm_max_pulses(K, dt, dev))):
+        raise ValueError(f"LM kernel takes 1..{lm_max_pulses(K, dt, dev)} "
+                         f"pulses over {K} fit bins in {dt} (a lane's arrays "
+                         f"in one block's shared memory), not {P} (M = {M})")
     kernels.require(coeffs_pad, "coeffs_pad", (N, 4, SEG), dt, dev)
     kernels.require(x0, "x0", (N,), dt, dev)
     for name, t in (("u0", u0), ("lo", lo), ("hi", hi), ("p_seed", p_seed)):

@@ -24,10 +24,14 @@ other's device work.
 
 The device is the card unless the caller asks for the CPU
 (``device="cpu"``); without a card that is an error, never a fallback.
+
+With a ``mesh`` (``parallel.mesh``) the batches run over the mesh's ranks,
+one at a time, and rank 0 writes the file (``_run_segment_mesh``).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import logging
 import os
@@ -90,6 +94,16 @@ def resolve_device(device) -> torch.device:
 def torch_dtype(cfg: NPSConfig) -> torch.dtype:
     return {"float32": torch.float32,
             "float64": torch.float64}[np.dtype(cfg.compute_dtype).name]
+
+
+def _warn_bad_events(d: DecodedBatch, n_valid: int) -> None:
+    """The reference's per-event warnings (slot problem ref :867-872, Ndata
+    guard ref :830-836), for a decoded batch."""
+    bad = d.bad_slot[:n_valid]
+    for e in np.nonzero(bad != -1)[0]:
+        kind = {-2: "truncated stream", -3: "oversize (Ndata guard)"}.get(
+            int(bad[e]), f"slot number problem (slot {bad[e]})")
+        log.warning("event %s: %s", d.evt[e], kind)
 
 
 def _pad_decoded(cfg: NPSConfig, d: DecodedBatch, target: int) -> DecodedBatch:
@@ -277,12 +291,13 @@ def run_segment(cfg: NPSConfig, cal: CalibrationBundle, seg: RawSegment,
     of the final merged file only; part files are written uncompressed.
     ``chain_batches`` > 1 runs k batches a call and fetches one [k, total]
     packet stack; results are bit-identical to k single calls and resume
-    stays per batch. ``mesh`` (the multi-device path) is not ported yet.
+    stays per batch. ``mesh`` (a ``parallel.mesh.Mesh``) runs the batches
+    over its ranks instead of on ``device``: see ``_run_segment_mesh``.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "run_segment runs on one device: the torch.distributed mesh is "
-            "ROADMAP Queue 1 item 11")
+        return _run_segment_mesh(cfg, cal, seg, out_path, batch_size, mesh,
+                                 resume, use_native_decode, timers,
+                                 progress_every, profile_dir, compress_output)
     dev = resolve_device(device)
     timers = timers or StageTimer()
     t_start = time.perf_counter()
@@ -410,16 +425,7 @@ def run_segment(cfg: NPSConfig, cal: CalibrationBundle, seg: RawSegment,
                 rows = list(flat.numpy())                   # [k, total]
             for (lo, hi, d, d_pad, dev_batch), buf in zip(items, rows):
                 n_valid = hi - lo
-                bad = d.bad_slot[:n_valid]
-                if np.any(bad != -1):
-                    # the reference's per-event warnings (slot problem ref
-                    # :867-872, Ndata guard ref :830-836), per batch
-                    for e in np.nonzero(bad != -1)[0]:
-                        kind = {-2: "truncated stream",
-                                -3: "oversize (Ndata guard)"}\
-                            .get(int(bad[e]),
-                                 f"slot number problem (slot {bad[e]})")
-                        log.warning("event %s: %s", d.evt[e], kind)
+                _warn_bad_events(d, n_valid)
                 pkt_host, lane_ovf = unflatten_packet(
                     buf, batch_size, cfg.nblocks, pack_cap,
                     pres=d_pad.pres[:, :B], lane_cap=lane_cap,
@@ -492,3 +498,135 @@ def run_segment(cfg: NPSConfig, cal: CalibrationBundle, seg: RawSegment,
             res.n_high_pulse, res.n_search_dropped)
     log.info(timers.report())
     return res
+
+
+# ---------------------------------------------------------------------
+# The mesh path
+# ---------------------------------------------------------------------
+def _run_segment_mesh(cfg, cal, seg, out_path, batch_size, mesh, resume,
+                      use_native_decode, timers, progress_every, profile_dir,
+                      compress_output) -> RunResult:
+    """``run_segment`` over the ranks of ``mesh``, as the JAX package's mesh
+    path: one batch at a time (chaining does not apply), the dense packet.
+    Every rank decodes the batch and takes its shard; the global output is
+    gathered on rank 0, which builds the packet on its device, writes the
+    part, records it for resume and merges the parts at the end. The
+    caller's ``timers`` get rank 0's stage samples."""
+    from npswf_tpu_torch.parallel.mesh import launch
+    # the raw stream (about 1 MB a dense event) reaches the ranks as one
+    # file that each maps, not as a pickled copy a rank
+    stream_path = out_path + ".stream.npy"
+    np.save(stream_path, seg.stream)
+    try:
+        res, samples = launch(mesh, _mesh_rank, cfg, cal,
+                              dataclasses.replace(seg, stream=np.empty(0)),
+                              stream_path, out_path, batch_size, resume,
+                              use_native_decode, progress_every, profile_dir,
+                              compress_output)
+    finally:
+        os.remove(stream_path)
+    if timers is not None:
+        for name, values in samples.items():
+            for dt in values:
+                timers.record(name, dt)
+    log.info("Total failed fits: %d total fits succeed: %d (dropped %d)",
+             res.n_fit_failure, res.n_fit_success, res.n_fit_dropped)
+    return res
+
+
+def _mesh_rank(rm, cfg, cal, seg, stream_path, out_path, batch_size, resume,
+               use_native_decode, progress_every, profile_dir,
+               compress_output):
+    """One rank's part of ``_run_segment_mesh`` (``seg`` without its
+    stream, which is mapped from ``stream_path``); rank 0 returns
+    (RunResult, its stage samples), the others None."""
+    from npswf_tpu_torch.engine.pipeline import flatten_packet, pack_for_writer
+    from npswf_tpu_torch.parallel.mesh import (gather_output,
+                                               make_sharded_pipeline,
+                                               shard_calibration,
+                                               shard_event_batch)
+    timers = StageTimer()
+    t_start = time.perf_counter()
+    seg = dataclasses.replace(seg, stream=np.load(stream_path, mmap_mode="r"))
+    lead = rm.rank == 0
+    dtype = torch_dtype(cfg)
+    calib = shard_calibration(
+        cfg, calib_to_torch(cal.device_arrays(cfg), "cpu", dtype), rm)
+    pipeline = make_sharded_pipeline(cfg, calib, rm)
+    E, B = batch_size, cfg.nblocks
+    pack_cap = 2 * E * B
+    parts_dir = out_path + ".parts"
+    if lead:
+        os.makedirs(parts_dir, exist_ok=True)
+    # every rank reads the sidecar before the first batch's collectives,
+    # so before rank 0 can mark anything
+    progress = _Progress(out_path + ".progress.json")
+    ranges = [(lo, min(lo + batch_size, seg.n_events))
+              for lo in range(0, seg.n_events, batch_size)]
+    pending = [r for r in ranges if not (resume and progress.done(*r))]
+    if lead and len(pending) < len(ranges):
+        log.info("resume: skipping %d completed batches",
+                 len(ranges) - len(pending))
+    done_events = 0
+    last_done = None
+    with device_trace(profile_dir if lead else None):
+        for lo, hi in pending:
+            n_valid = hi - lo
+            with timers.stage("decode"):
+                d = decode_segment(cfg, cal, seg, lo, hi,
+                                   use_native=use_native_decode)
+                d_pad = _pad_decoded(cfg, d, batch_size)
+            with timers.stage("upload"):
+                local = shard_event_batch(
+                    cfg, _to_event_batch(cfg, d_pad, dtype, "cpu"), rm)
+            with timers.stage("pipeline"):
+                out = pipeline(local)
+            with timers.stage("fetch"):
+                glob = gather_output(out, rm)
+            if not lead:
+                continue
+            _warn_bad_events(d, n_valid)
+            with timers.stage("write"):
+                out_t = PipelineOutput(*(torch.as_tensor(a, device=rm.device)
+                                         for a in glob))
+                buf = flatten_packet(pack_for_writer(out_t, pack_cap))
+                pkt, _ = unflatten_packet(buf.cpu().numpy(), E, B, pack_cap)
+                w = WFWriter(cfg)
+                if int(pkt.n_wf) > pack_cap or int(pkt.n_h) > pack_cap:
+                    w.add_batch(glob, d_pad, n_valid=n_valid)
+                else:
+                    w.add_packet(pkt, d_pad, n_valid=n_valid)
+                w.finalize(os.path.join(parts_dir,
+                                        f"part_{lo:09d}_{hi:09d}.npz"),
+                           compress=False)
+            progress.mark(lo, hi)
+            t_now = time.perf_counter()
+            if last_done is not None:
+                timers.record("interbatch", t_now - last_done)
+            last_done = t_now
+            done_events += n_valid
+            if done_events % progress_every < batch_size:
+                log.info(" Entry = %d  elapsed=%.2fs", hi,
+                         time.perf_counter() - t_start)
+    if not lead:
+        return None
+    with timers.stage("merge"):
+        part_paths = [os.path.join(parts_dir, f)
+                      for f in sorted(os.listdir(parts_dir))]
+        merged = merge_parts(part_paths, out_path, payload=dict(seg.payload),
+                             compress=compress_output)
+    shutil.rmtree(parts_dir, ignore_errors=True)
+    if os.path.exists(out_path + ".progress.json"):
+        os.remove(out_path + ".progress.json")
+    wall = time.perf_counter() - t_start
+    res = RunResult(
+        n_events=seg.n_events, n_fit_success=merged.n_fit_success,
+        n_fit_failure=merged.n_fit_failure, n_fit_dropped=merged.n_fit_dropped,
+        wall_time=wall, events_per_sec=seg.n_events / max(wall, 1e-9),
+        blocks_per_sec=seg.n_events * cfg.nblocks / max(wall, 1e-9),
+        out_path=out_path, n_bad_slot=merged.n_bad_slot,
+        n_oversize=merged.n_oversize, n_truncated=merged.n_truncated,
+        n_high_pulse=merged.n_high_pulse,
+        n_search_dropped=merged.n_search_dropped)
+    log.info(timers.report())
+    return res, dict(timers.samples)

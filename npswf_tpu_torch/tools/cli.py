@@ -17,13 +17,17 @@ Subcommands:
 
 plus pass-through wrappers for the analysis/maintenance tools (forward
 their flags after ``--``): convert-root, convert-wf-root, solver-audit,
-cpu-baseline, derive-fixtures, extract-templates.
+e2e-bench, glue-profile, cpu-baseline, derive-fixtures, extract-templates,
+measure-link, perf-probe.
 
 ``run`` and ``solver-audit`` use the CUDA device unless ``--cpu`` is given;
-without a card they exit non-zero. The other tools work on the host.
+without a card they exit non-zero. ``run --devices N --block-shards M``
+starts N x M ranks itself (``parallel.mesh``): one card a rank on NCCL, or
+gloo ranks on the CPU with ``--cpu``; too few cards raise. The probes
+(e2e-bench, glue-profile, perf-probe, measure-link) use the card unless
+``--cpu`` follows their ``--``. The other tools work on the host.
 ``--x64`` is accepted and does nothing: the compute dtype is the
-configuration's ``compute_dtype``. More than one device (``--devices``,
-``--block-shards``) is not ported yet.
+configuration's ``compute_dtype``.
 """
 from __future__ import annotations
 
@@ -72,12 +76,10 @@ def cmd_run(args) -> int:
     from npswf_tpu_torch.io.rawstream import read_segment
     from npswf_tpu_torch.runtime.executor import run_segment
 
-    if args.devices > 1 or args.block_shards > 1:
-        raise NotImplementedError(
-            "--devices/--block-shards: the torch.distributed mesh is ROADMAP "
-            "Queue 1 item 11")
     device = _device(args)
-    if device == "cuda" and not torch.cuda.is_available():
+    sharded = args.devices > 1 or args.block_shards > 1
+    # a mesh on cards names its cards itself (make_mesh: "need k devices")
+    if device == "cuda" and not sharded and not torch.cuda.is_available():
         print("ERROR: no CUDA device; pass --cpu to run on the CPU",
               file=sys.stderr)
         return 3
@@ -106,8 +108,16 @@ def cmd_run(args) -> int:
     if args.range:
         lo, hi = args.range
         seg = seg.slice(lo, min(hi, seg.n_events))
+    mesh = None
+    if sharded:
+        # --devices ranks a row shard, --block-shards row shards: gloo ranks
+        # on the CPU with --cpu, else one card a rank on NCCL
+        from npswf_tpu_torch.parallel.mesh import make_mesh
+        n = args.devices * args.block_shards
+        mesh = make_mesh(cfg, n_data=args.devices, n_block=args.block_shards,
+                         devices=["cpu"] * n if device == "cpu" else None)
     res = run_segment(cfg, cal, seg, args.out, batch_size=args.batch_size,
-                      resume=not args.no_resume,
+                      mesh=mesh, resume=not args.no_resume,
                       use_native_decode=not args.no_native,
                       profile_dir=args.profile,
                       chain_batches=args.chain_batches, device=device)
@@ -200,6 +210,12 @@ _DELEGATED = {
     "solver-audit": ("npswf_tpu_torch.tools.solver_audit",
                      "classify LM fit failures vs an independent scipy-TRF "
                      "solve on adversarial ensembles"),
+    "e2e-bench": ("npswf_tpu_torch.tools.e2e_bench",
+                  "host-I/O-inclusive run_segment benchmark "
+                  "(decode/upload/pipeline/fetch/write stage medians)"),
+    "glue-profile": ("npswf_tpu_torch.tools.glue_profile",
+                     "stage ablation of one pipeline batch, per-batch "
+                     "device cost as a slope over back-to-back batches"),
     "cpu-baseline": ("npswf_tpu_torch.tools.cpu_baseline",
                      "measured single-thread CPU reference denominator "
                      "(golden search + scipy TRF per block)"),
@@ -208,6 +224,12 @@ _DELEGATED = {
     "extract-templates": ("npswf_tpu_torch.tools.extract_templates",
                           "build per-block reference-waveform calibration "
                           "from clean single-pulse events in a raw segment"),
+    "measure-link": ("npswf_tpu_torch.tools.measure_link",
+                     "host<->card link bandwidth (median of N >=8 MB pinned "
+                     "transfers) + the dense batch's transfer floor"),
+    "perf-probe": ("npswf_tpu_torch.tools.perf_probe",
+                   "dispatch-regime probes: sync round-trip floor, "
+                   "batch-size sweep, chain-k sweep"),
 }
 
 
@@ -255,9 +277,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chain-batches", type=int, default=1,
                    help="batches a call, fetched as one stacked packet")
     p.add_argument("--devices", type=int, default=1,
-                   help="only 1: more devices are not ported yet")
+                   help="ranks along the data axis (events); with "
+                        "--block-shards M the run starts devices x M ranks "
+                        "itself: one card a rank on NCCL, or gloo ranks on "
+                        "the CPU with --cpu")
     p.add_argument("--block-shards", type=int, default=1,
-                   help="only 1: block-row sharding is not ported yet")
+                   help="row shards of the calorimeter (must divide its 36 "
+                        "rows); the cluster gate exchanges one-row halos "
+                        "between them")
     p.add_argument("--fit-capacity", type=int, default=0)
     p.add_argument("--search-capacity", type=int, default=0,
                    help="max searched lanes per batch (sparse-readout "

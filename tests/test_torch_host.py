@@ -7,7 +7,9 @@ C++ decoder ``io/native/decode.cpp``), the scalar oracles
 (``golden.reference``, ``golden.searchhighres_decimal``), the host tools
 (``parity``, ``diagnostics``, ``cpu_baseline``, ``convert_root``,
 ``convert_wf_to_root``, ``extract_templates``, ``derive_fixtures``,
-``plotstats``), ``StageTimer`` and the host inverses of the writer packets. Same fields and defaults, same arrays from
+``plotstats``), ``StageTimer``, the host inverses of the writer packets and
+the probes' host helpers (``e2e_bench.build_tiled_segment``,
+``glue_profile._patched``). Same fields and defaults, same arrays from
 the same seeds, and every copied function and method identical in source
 up to the package's name.
 
@@ -44,7 +46,11 @@ import npswf_tpu.tools.convert_wf_to_root as jax_convert_wf_to_root
 import npswf_tpu.tools.cpu_baseline as jax_cpu_baseline
 import npswf_tpu.tools.derive_fixtures as jax_derive_fixtures
 import npswf_tpu.tools.diagnostics as jax_diagnostics
+import npswf_tpu.tools.e2e_bench as jax_e2e_bench
 import npswf_tpu.tools.extract_templates as jax_extract_templates
+import npswf_tpu.tools.glue_profile as jax_glue_profile
+import npswf_tpu.tools.measure_link as jax_measure_link
+import npswf_tpu.tools.perf_probe as jax_perf_probe
 import npswf_tpu.tools.parity as jax_parity
 import npswf_tpu.tools.plotstats as jax_plotstats
 import npswf_tpu.tools.solver_audit as jax_solver_audit
@@ -66,7 +72,11 @@ import npswf_tpu_torch.tools.convert_wf_to_root as convert_wf_to_root
 import npswf_tpu_torch.tools.cpu_baseline as cpu_baseline
 import npswf_tpu_torch.tools.derive_fixtures as derive_fixtures
 import npswf_tpu_torch.tools.diagnostics as diagnostics
+import npswf_tpu_torch.tools.e2e_bench as e2e_bench
 import npswf_tpu_torch.tools.extract_templates as extract_templates
+import npswf_tpu_torch.tools.glue_profile as glue_profile
+import npswf_tpu_torch.tools.measure_link as measure_link
+import npswf_tpu_torch.tools.perf_probe as perf_probe
 import npswf_tpu_torch.tools.parity as parity
 import npswf_tpu_torch.tools.plotstats as plotstats
 import npswf_tpu_torch.tools.solver_audit as solver_audit
@@ -84,7 +94,9 @@ PAIRS = [(config, jax_config), (calibration, jax_calibration),
          (convert_wf_to_root, jax_convert_wf_to_root),
          (extract_templates, jax_extract_templates),
          (derive_fixtures, jax_derive_fixtures),
-         (solver_audit, jax_solver_audit)]
+         (solver_audit, jax_solver_audit), (e2e_bench, jax_e2e_bench),
+         (glue_profile, jax_glue_profile), (perf_probe, jax_perf_probe),
+         (measure_link, jax_measure_link)]
 
 # definitions of those modules that are ported, not copied, and why
 PORTED = {
@@ -107,16 +119,22 @@ PORTED = {
     "executor._on": "a CUDA stream per stage worker",
     "executor.run_segment": "streams, events and pinned copies in place of "
                             "JAX's asynchronous dispatch; a device argument; "
-                            "no mesh yet",
+                            "the mesh path in _run_segment_mesh",
+    "executor._warn_bad_events": "the reference's per-event warnings, "
+                                 "shared by both paths",
+    "executor._run_segment_mesh": "ranks on torch.distributed in place of "
+                                  "shard_map",
+    "executor._mesh_rank": "one rank of the mesh path: decode, shard, "
+                           "gather on rank 0, which writes",
     "cli._device": "the CUDA device unless --cpu",
-    "cli.cmd_run": "the device check, --config, no mesh yet",
+    "cli.cmd_run": "the device check, --config, the mesh from "
+                   "parallel.mesh (gloo ranks with --cpu)",
     "cli._with_config_file": "run's --config (model_aux from a JSON file)",
     "cli._make_delegate": "every tool's main takes its arguments (the port's "
                           "cpu_baseline too)",
     "cli.synth_records": "synth's streams and hits, shared with chip_smoke.py",
     "cli.cmd_synth": "no JAX set-up; its records come from synth_records",
-    "cli.build_parser": "the port's help, no mesh options and no throughput "
-                        "probes yet",
+    "cli.build_parser": "the port's help",
     "cli.cmd_diagnostics": "no JAX set-up; a clear exit without matplotlib",
     "cpu_baseline.main": "takes the time budget and the block minimum",
     "solver_audit._host": "device tensors to numpy",
@@ -124,6 +142,24 @@ PORTED = {
     "solver_audit.audit_signal": "a device argument; the pipeline's model "
                                  "(the planes, on K3)",
     "solver_audit.main": "--cpu picks the device; no JAX set-up",
+    "e2e_bench.measure_device_only": "process_batch timed by CUDA events",
+    "e2e_bench.run_mode": "a device argument; unrounded numbers",
+    "e2e_bench.main": "--cpu picks the device",
+    "glue_profile.main": "torch stubs; the slope over back-to-back batches "
+                         "in place of a lax.scan",
+    "glue_profile.batch_slope": "the per-batch slope timed by CUDA events",
+    "perf_probe._chi2": "a torch fetch",
+    "measure_link.dense_batch_bytes": "the port's own dense payload",
+    "perf_probe._setup": "torch tensors on the card or the CPU",
+    "perf_probe._pipelined": "torch: a fetch is a copy to the host",
+    "perf_probe.cmd_floor": "the executor's packet chains",
+    "perf_probe.cmd_esweep": "torch; --sizes",
+    "perf_probe.cmd_chain": "the executor's packet chains; --sizes",
+    "perf_probe.main": "--cpu, --sizes and a JSON line",
+    "measure_link._timed_transfers": "pinned torch buffers and copies",
+    "measure_link.measure_link": "GB/s; the port's own dense payload; no "
+                                 "TPU constant",
+    "measure_link.main": "--cpu; no default device time",
 }
 
 

@@ -168,11 +168,21 @@ def test_cluster_gate_exact(small_cfg, small_cal):
     np.testing.assert_array_equal(ours, ref)
 
 
-def test_cluster_gate_single_device_only(small_cfg, small_cal):
-    sig = torch.zeros((1, small_cfg.nblocks, small_cfg.ntime), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        cluster_gate(_port(small_cfg), sig, torch.as_tensor(small_cal.timeref),
-                     small_cal.timerefacc, block_axis="block", block_shards=2)
+def test_cluster_gate_single_device_only(small_cfg, small_cal, tmp_path):
+    """Row shards need their block group: block_shards=2 without one, or
+    with an axis name (the JAX package's form), raises; with a group (here
+    a world of one, one shard) the gate equals the single device's."""
+    from npswf_tpu_torch.parallel.mesh import world_of_one
+    truth = make_events(small_cfg, small_cal, 2, occupancy=0.3, seed=5)
+    sig = torch.as_tensor(truth.signal)
+    args = (_port(small_cfg), sig, torch.as_tensor(small_cal.timeref),
+            small_cal.timerefacc)
+    for axis in (None, "block"):
+        with pytest.raises(TypeError, match="block_axis"):
+            cluster_gate(*args, block_axis=axis, block_shards=2)
+    with world_of_one(workdir=str(tmp_path)) as rm:
+        grouped = cluster_gate(*args, block_axis=rm.block, block_shards=1)
+    assert torch.equal(grouped, cluster_gate(*args))
 
 
 def test_spline_eval_grad_matches_jax(cfg, cal):

@@ -68,7 +68,10 @@ def test_port_imports_no_jax():
             "('jax', 'jaxlib', 'npswf_tpu'))\n"
             "assert not bad, bad\n"
             "for m in ('fit.eval_kernel', 'runtime.executor', 'io.native', "
-            "'io.decode', 'tools.cli', 'utils.timers', 'golden.reference'):\n"
+            "'io.decode', 'tools.cli', 'utils.timers', 'golden.reference', "
+            "'parallel.axis', 'parallel.mesh', 'parallel.dryrun', "
+            "'tools.e2e_bench', 'tools.glue_profile', 'tools.perf_probe', "
+            "'tools.measure_link', 'utils.timing'):\n"
             "    assert 'npswf_tpu_torch.' + m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
@@ -236,6 +239,34 @@ def test_lm_kernel_bit_equal_to_plain(card, dtype, P, max_pulses, n):
     assert lm_equal(torch, k, p) == n
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37])
+@pytest.mark.parametrize("P", [16, 24, "limit"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lm_kernel_wide_bit_equal_to_plain(card, dtype, P, n):
+    """K3's wide unit (csrc/lm_wide.cu, P at run time) against its plain
+    version on retry-shaped calls of up to 8 pulses a lane: u, chi2, conv,
+    n_iter and lambda equal on every lane. At the limit (the widest P whose
+    lane fits a block, lm_max_pulses) the call's iterations are cut to 4:
+    the plain version's substitutions take M^2 launches an iteration."""
+    from chip_smoke import lm_equal, lm_retry_inputs
+    from npswf_tpu_torch.fit.lm_kernel import (lm_max_pulses, lm_solve_kernel,
+                                               lm_solve_plain)
+    cfg = NPSConfig(compute_dtype="float32")
+    limit = P == "limit"
+    P = lm_max_pulses(cfg.nfitbins, dtype) if limit else P
+    cfg = cfg.replace(maxwfpulses=P)
+    cal = synthetic_calibration(cfg, seed=1)
+    args = list(lm_retry_inputs(torch, cfg, cal, n, 8, P, 61 + n + P, dtype,
+                                card))
+    if limit:
+        args[10] = 4
+    k = lm_solve_kernel(cfg, *args)
+    p = lm_solve_plain(cfg, *args)
+    torch.cuda.synchronize()
+    assert lm_equal(torch, k, p) == n
+
+
 def _system_cases(n, P, max_pulses, dtype, dev):
     """K6's and, for P <= NARROW_P, K7's calls on n lanes:
     [(kernel name, kernel call, plain call)]."""
@@ -285,24 +316,28 @@ def test_system_kernels_launch_once(card, P, max_pulses):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_widths_they_do_not_take(card):
-    """K3 is compiled for 1..15 pulses and K6 takes a width while one
-    lane's tile fits a block (61 at K = 90): wider calls raise before any
-    launch."""
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernels_refuse_widths_they_do_not_take(card, dtype):
+    """K3 takes a width while one lane's arrays fit a block (lm_max_pulses:
+    71 in fp64 and 106 in fp32 at K = 90 on an H100) and K6 while one
+    lane's tile fits (61 at K = 90): wider calls raise before any launch."""
     from npswf_tpu_torch.fit.eval_kernel import SEG, fused_system
-    from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel
+    from npswf_tpu_torch.fit.lm_kernel import lm_max_pulses, lm_solve_kernel
     cfg = NPSConfig()
     N, K = 2, cfg.nfitbins
+    limit = lm_max_pulses(K, dtype)
+    assert limit >= 61
 
     def z(*shape):
-        return torch.zeros(shape, dtype=torch.float64, device=card)
-    for P, run in ((16, "lm"), (62, "system")):
+        return torch.zeros(shape, dtype=dtype, device=card)
+    for P, run in ((limit + 1, "lm"), (62, "system")):
         M = 1 + 2 * P
         mask = torch.ones((N, M), dtype=torch.bool, device=card)
         args = (z(N, 4, SEG), z(N), z(N, K), z(N, K), z(N, M), z(N, M),
                 z(N, M), z(N, M), mask)
         kernels.reset_counts()
-        with pytest.raises(ValueError, match="1..15" if run == "lm" else "tile"):
+        with pytest.raises(ValueError, match=(f"1..{limit} pulses"
+                                              if run == "lm" else "tile")):
             if run == "lm":
                 lm_solve_kernel(cfg, *args, mask[:, 0], 10, 1e-3)
             else:

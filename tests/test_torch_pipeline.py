@@ -91,15 +91,19 @@ BUCKET_WIDTHS = {
     # default route (pallas_lm_max_pulses raised with it)
     "wide15": (dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=15,
                     pallas_lm_max_pulses=15), ((2, 1, 2), (15, 3, 15))),
+    # above the compiled widths: K3's wide unit (P at run time) at P = 20
+    "wide20": (dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=20,
+                    pallas_lm_max_pulses=20), ((2, 1, 2), (20, 3, 20))),
 }
 
 
 @pytest.mark.parametrize("case", list(BUCKET_WIDTHS))
 def test_process_batch_bucket_widths_match_jax_fp64(small_cfg, small_cal, case):
-    """Buckets of width 5, 10 and 15 (a middle bound of 5; the wide bucket
-    at maxwfpulses=10, and at 15 with pallas_lm_max_pulses=15, the widest
-    K3 takes) carry lanes, and the default route matches the JAX package:
-    decisions and counters exact, floats to 1e-9 relative."""
+    """Buckets of width 5, 10, 15 and 20 (a middle bound of 5; the wide
+    bucket at maxwfpulses=10, and at 15 and 20 with pallas_lm_max_pulses
+    raised with it: K3's widest compiled width, and its wide unit) carry
+    lanes, and the default route matches the JAX package: decisions and
+    counters exact, floats to 1e-9 relative."""
     changes, buckets = BUCKET_WIDTHS[case]
     ours, ref = _run_both(small_cfg.replace(**changes), small_cal, torch.float64)
     n = ours["wfnpulse"][ours["gate"]]
@@ -165,14 +169,27 @@ def test_process_batch_capacities_match_jax(small_cfg, small_cal):
     _assert_fp64_match(ours, ref)
 
 
-def test_process_batch_single_device_only(small_cfg, small_cal):
-    arrays = small_cal.device_arrays(small_cfg.replace(compute_dtype="float64"))
-    T = small_cfg.ntime
-    batch = batch_to_torch(np.zeros((1, small_cfg.nblocks, T)),
-                           np.ones((1, small_cfg.nblocks)), np.zeros(1), "cpu",
+def test_process_batch_single_device_only(small_cfg, small_cal, tmp_path):
+    """Sharded arguments need their groups: axis names (the JAX package's
+    form) or block shards without a block group raise; with the groups of
+    a world of one the output equals the single device's, field for
+    field."""
+    from npswf_tpu_torch.parallel.mesh import world_of_one
+    cfg64 = small_cfg.replace(compute_dtype="float64")
+    truth = make_events(cfg64, small_cal, 2, occupancy=0.4, max_pulses=2,
+                        seed=5)
+    batch = batch_to_torch(truth.signal, truth.pres, np.zeros(2), "cpu",
                            torch.float64)
-    calib = calib_to_torch(arrays, "cpu", torch.float64)
-    for kw in ({"block_axis": "block"}, {"reduce_axes": ("data",)}):
-        with pytest.raises(NotImplementedError):
-            process_batch(TorchConfig.from_json(small_cfg.to_json()), calib,
-                          batch, **kw)
+    calib = calib_to_torch(small_cal.device_arrays(cfg64), "cpu",
+                           torch.float64)
+    port = TorchConfig.from_json(cfg64.to_json())
+    for kw in ({"block_axis": "block"}, {"reduce_axes": ("data",)},
+               {"block_shards": 2}):
+        with pytest.raises(TypeError, match="Axis"):
+            process_batch(port, calib, batch, **kw)
+    ref = process_batch(port, calib, batch)
+    with world_of_one(workdir=str(tmp_path)) as rm:
+        out = process_batch(port, calib, batch, block_axis=rm.block,
+                            reduce_axes=(rm.world,))
+    for name, a, b in zip(ref._fields, out, ref):
+        assert torch.equal(a, b), name

@@ -307,12 +307,15 @@ def test_empty_and_single_event_segments(small_cfg, tmp_path):
 
 def test_run_segment_needs_a_card_unless_the_cpu_is_asked_for(segments, tmp_path):
     """No CPU fallback: without a card device="cuda" (the default) raises;
-    a mesh is not ported; the profile goes to a Chrome trace."""
+    a mesh on cards the machine lacks is refused when it is made; the
+    profile goes to a Chrome trace."""
+    from npswf_tpu_torch.parallel.mesh import make_mesh
     _, seg, cal = segments["sparse"]
     args = (_cfg(segments, "sparse"), CalibrationBundle.load(cal),
             read_segment(seg), str(tmp_path / "wf.npz"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_segment(*args, mesh=object(), device="cpu")
+    n_cards = torch.cuda.device_count()
+    with pytest.raises(ValueError, match=f"need {n_cards + 1} devices"):
+        run_segment(*args, mesh=make_mesh(args[0], n_data=n_cards + 1))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_segment(*args)
@@ -345,13 +348,22 @@ def test_cli_subprocess_end_to_end(tmp_path):
 
 def test_cli_run_without_a_card_fails(segments, tmp_path):
     """run without --cpu and without a visible card exits non-zero with a
-    message and writes no file; more devices are refused."""
+    message and writes no file; --devices 2 without two cards raises, and
+    --cpu --devices 2 runs two gloo ranks to the single device's file."""
     _, seg, cal = segments["sparse"]
     out = str(tmp_path / "o.npz")
     r = _cli("run", "--input", seg, "--calib", cal, "--out", out,
              env={"CUDA_VISIBLE_DEVICES": ""})
     assert r.returncode != 0 and "no CUDA device" in r.stderr
     assert not os.path.exists(out) and not os.path.exists(out + ".parts")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        cli_main(["run", "--input", seg, "--calib", cal, "--out", out, "--cpu",
-                  "--devices", "2"])
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="need 2 devices"):
+            cli_main(["run", "--input", seg, "--calib", cal, "--out", out,
+                      "--devices", "2"])
+    _, seg, cal = segments["synth"]
+    one, two = str(tmp_path / "one.npz"), str(tmp_path / "two.npz")
+    for path, more in ((one, []), (two, ["--devices", "2"])):
+        assert cli_main(["run", "--input", seg, "--calib", cal, "--out", path,
+                         "--batch-size", "8", "--cpu", *more]) == 0
+    with open(one, "rb") as a, open(two, "rb") as b:
+        assert a.read() == b.read()

@@ -314,7 +314,12 @@ def test_cli_lists_every_subcommand(capsys):
     text = capsys.readouterr().out
     for name in ("run", "synth", "validate", "parity", "diagnostics",
                  "convert-root", "convert-wf-root", "solver-audit",
-                 "cpu-baseline", "derive-fixtures", "extract-templates"):
+                 "cpu-baseline", "derive-fixtures", "extract-templates",
+                 "e2e-bench", "glue-profile", "perf-probe", "measure-link"):
         assert name in text
-    for name in ("e2e-bench", "glue-profile", "perf-probe", "measure-link"):
-        assert name not in text
+    # every subcommand of the JAX package's CLI
+    from npswf_tpu.tools.cli import build_parser as jax_parser
+    sub = [a for a in jax_parser()._actions
+           if isinstance(a, __import__("argparse")._SubParsersAction)][0]
+    assert set(sub.choices) <= set(cli._DELEGATED) | {
+        "run", "synth", "validate", "parity", "diagnostics"}
