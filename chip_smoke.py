@@ -25,8 +25,9 @@ subprocess. The ``[models]`` phase fits the dense batch with the gaussian
 and biexp families (K1 and K2, then the generic loop in plain PyTorch),
 against the plain path, timed, and a batch of true gaussian pulses against
 its truth; ``[k3-wide]`` holds K3 at 13-15 pulses (compiled widths) and at
-16, 24 and the widest a block's shared memory holds (the wide unit, P at
-run time) to its plain version, refuses one more, and runs a pileup batch
+16, 24, 48 and the widest a block's shared memory holds (the wide unit, P
+at run time) to its plain version, times the wide unit at 16, 24, 48 and
+the fp32 limit, refuses one more, and runs a pileup batch
 whose widest bucket is 15 pulses, then 24; ``[tools]`` runs the CLI's
 parity, extract-templates (then run with the extracted calibration),
 solver-audit and cpu-baseline in subprocesses, and the audit's fit in
@@ -44,7 +45,7 @@ failed phase exits non-zero. It imports no jax. Without a CUDA device, or
 outside the repository, it exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --time-systems ROOT`` only times K6 and K7 (the
-wrapper and the kernel alone), and ``--time-route ROOT`` only the default
+wrapper and the kernel alone) and K3's wide unit at P = 24, and ``--time-route ROOT`` only the default
 route's batch, with the package of the checkout at ROOT, to compare two
 checkouts on one card in turns.
 """
@@ -79,11 +80,14 @@ CLI_EVENTS = 32
 MODEL_FAMILIES = {"gaussian": (("width", 3.5),),
                   "biexp": (("tau_r", 1.8), ("tau_d", 9.0))}
 # [k3-wide]: (P, most pulses a lane) of the kernel checks ("limit": the
-# widest P a lane of the type fits, lm_max_pulses), their lane count, the
-# iterations a call at the limit is cut to (the plain version's
-# substitutions take M^2 launches an iteration), and the bucket bounds that
-# send 3-4 pulse lanes to width 15, then to width 24 (K3's wide unit)
-WIDE_WIDTHS = ((13, 13), (14, 7), (15, 15), (16, 16), (24, 8), ("limit", 8))
+# widest P a lane of the type fits, lm_max_pulses), the fp32 widths timed,
+# their lane count, the iterations a call at the limit is cut to (the plain
+# version's substitutions take M^2 launches an iteration), and the bucket
+# bounds that send 3-4 pulse lanes to width 15, then to width 24 (K3's wide
+# unit)
+WIDE_WIDTHS = ((13, 13), (14, 7), (15, 15), (16, 16), (24, 8), (48, 8),
+               ("limit", 8))
+WIDE_TIMED = (16, 24, 48, "limit")
 WIDE_LANES = 4096
 WIDE_LIMIT_ITERS = 4
 WIDE_BUCKETS = dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=15,
@@ -1422,13 +1426,14 @@ def check_models(torch, cfg, cal, calib, batch, dev, card):
 
 
 def check_k3_wide(torch, dev, card):
-    """The [k3-wide] phase: K3 at P = 13-15 (compiled widths), 16, 24 and
-    the limit of each type (the wide unit, P at run time) on check_lm's
+    """The [k3-wide] phase: K3 at P = 13-15 (compiled widths), 16, 24, 48
+    and the limit of each type (the wide unit, P at run time) on check_lm's
     inputs (WIDE_LANES lanes; the calls at the limit cut to
     WIDE_LIMIT_ITERS iterations; tests/test_torch_package.py has the
     retry-shaped calls), both types, u, chi2, conv, n_iter and lambda equal
     to its plain version on every lane; the limit + 1 refused before any
-    launch; K3 timed at P = 24 fp32; then the pileup batch with its widest
+    launch; the wide unit timed at WIDE_TIMED in fp32; then the pileup
+    batch with its widest
     bucket at 15 pulses (WIDE_BUCKETS), and at 24 (WIDE_BUCKETS_24),
     through check_bucket_run."""
     from npswf_tpu_torch import kernels
@@ -1471,13 +1476,14 @@ def check_k3_wide(torch, dev, card):
                            f"{(t2 - t1) * 1e3:.1f} ms ({card})")
             check(n_eq == n, f"K3 not bit-equal at P={P} {dt} n={n}")
             equal[f"P={P} {dt} n={n}"] = n_eq
-            if P == 24 and dt == torch.float32:
+            if width in WIDE_TIMED and dt == torch.float32:
                 ms = cuda_ms(torch, lambda: lm_solve_kernel(cfg, *args), 3)
-                timed["P=24 fp32"] = {"ms": ms, "lanes": n,
-                                      **lm_bound(torch, cfg, args, k)}
-                say("k3-wide", f"K3 at P=24 fp32, {n} lanes: {ms:.4f} ms a "
-                               f"call, bound {timed['P=24 fp32']['bound_ms']:.4f}"
-                               f" ms ({card})")
+                rec = timed[f"P={P} fp32"] = {
+                    "ms": ms, "lanes": n, "max_iter": int(args[10]),
+                    **lm_bound(torch, cfg, args, k)}
+                say("k3-wide", f"K3 at P={P} fp32, {n} lanes: {ms:.4f} ms a "
+                               f"call, bound {rec['bound_ms']:.4f} ms "
+                               f"({rec['bound_ms'] / ms:.1%}) ({card})")
             del args, k, p
     for dt, limit in limits.items():
         P = limit + 1
@@ -1726,7 +1732,8 @@ def check_probes(card):
 def time_systems(torch, card):
     """K6 at P = 2 and 12 and K7 at P = 2, fp32, N = 69,120, as a wrapper
     call (CUDA events) and as the kernel alone (the profiler's device
-    time), for whichever package the path finds first: run it once for
+    time), and K3's wide unit at P = 24 fp32 on 4,096 lanes (a wrapper
+    call), for whichever package the path finds first: run it once for
     each of two checkouts, in turns, to compare them on one card."""
     from npswf_tpu_torch import kernels
     from npswf_tpu_torch.core.calibration import synthetic_calibration
@@ -1749,9 +1756,22 @@ def time_systems(torch, card):
         for name, kname, fn in calls:
             res[f"{name} P={P}"] = {"ms": cuda_ms(torch, fn, 20),
                                     "kernel_ms": kernel_ms(torch, fn, 20, kname)}
+    res["lm_solve wide P=24"] = time_wide(torch, cfg, cal, 24, WIDE_LANES)
     print(json.dumps({"time_systems": res, "package": kernels.__file__,
                       "card": card}))
     return 0
+
+
+def time_wide(torch, cfg, cal, P, n, reps=5):
+    """K3's wide unit at P pulses, fp32, on [k3-wide]'s n lanes: a
+    wrapper call (CUDA events, mean of reps) beside its bound."""
+    from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel
+    cfg = cfg.replace(maxwfpulses=max(P, 15))
+    args = lm_inputs(torch, cfg, cal, n, 8, P, 91 + P + n, torch.float32,
+                     torch.device("cuda", 0))
+    out = lm_solve_kernel(cfg, *args)
+    ms = cuda_ms(torch, lambda: lm_solve_kernel(cfg, *args), reps)
+    return {"ms": ms, "lanes": n, **lm_bound(torch, cfg, args, out)}
 
 
 def time_route(torch, card):

@@ -21,16 +21,16 @@ from npswf_tpu_torch.fit.lm import CHOL_EPS, SAT_THRESH, lm_loop
 
 # Widths 1..LM_COMPILED_PULSES have an instantiation each (csrc/lm.cuh,
 # kMaxP: one row of the M x M system a thread of the 32-thread team); wider
-# ones run lm_wide.cu with P at run time, a thread owning every 32nd row, up
-# to lm_max_pulses. 12 is the default pallas_lm_max_pulses.
+# ones run lm_wide.cu with P at run time, a block of 128 or 256 threads a
+# lane, up to lm_max_pulses. 12 is the default pallas_lm_max_pulses.
 LM_COMPILED_PULSES = 15
 
 
 def lm_max_pulses(K: int, dtype: torch.dtype, device=None) -> int:
     """The widest pulse count K3 takes over K fit bins at ``dtype`` on
     ``device`` (default the current card): a wide lane's arrays must fit
-    one block's shared memory (csrc/lm_wide.cu; at K = 90 on an H100, 71
-    in fp64 and 106 in fp32). Asked of the card once a (card, dtype, K)."""
+    one block's shared memory (csrc/lm_wide.cu; at K = 90 on an H100, 77
+    in fp64 and 112 in fp32). Asked of the card once a (card, dtype, K)."""
     dev = torch.device("cuda" if device is None else device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     return _max_pulses(index, dtype, int(K))

@@ -28,6 +28,7 @@ from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch.tools import cli
 from npswf_tpu_torch.tools.solver_audit import audit_signal, build_fit_inputs
 from npswf_tpu_torch.utils.synthetic import adversarial_variants, make_events
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 COUNTS = ("n_fits", "n_failed", "n_audited", "lm_stuck", "same_minimum",
           "lm_better")
@@ -81,14 +82,24 @@ def test_build_fit_inputs_matches_jax(ensembles):
             np.testing.assert_array_equal(ours, ref, err_msg=f)
 
 
+# the audit's blocks: the last third of the calorimeter, which holds four
+# of the wrong-shape ensemble's five failed fits (the other two thirds
+# cost the run time and classify nothing else)
+AUDIT_FIRST_BLOCK = 720
+
+
 def test_audit_counts_equal_jax(ensembles):
-    """On the wrong-shape ensemble every fit fails or converges as in the
-    JAX tool, and TRF classifies the failures alike."""
+    """On the wrong-shape ensemble, with the blocks from AUDIT_FIRST_BLOCK
+    on present, every fit fails or converges as in the JAX tool, and TRF
+    classifies the failures alike."""
     cfg, cal, jcfg, jcal, ens, pres = ensembles
+    pres = pres.copy()
+    pres[:, :AUDIT_FIRST_BLOCK] = False
     ours = audit_signal(cfg, cal, ens["wrong_shape"], pres, sample=20,
                         device="cpu")
     ref = jax_audit.audit_signal(jcfg, jcal, ens["wrong_shape"], pres,
                                  sample=20)
+    assert ours["n_fits"] == cal.nblocks - AUDIT_FIRST_BLOCK
     assert ours["n_failed"] > 0
     assert {k: ours[k] for k in COUNTS} == {k: ref[k] for k in COUNTS}
 

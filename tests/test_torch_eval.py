@@ -28,6 +28,7 @@ from npswf_tpu_torch.ops.search_kernel import search_topk_kernel
 from tests.test_fit import _build_inputs
 from tests.test_pallas_lm import _narrow
 from tests.test_torch_ops import _lanes, _mf32
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 SLICE = dict(use_pallas_lm=False, pallas_search_select=True)
 ROUTES = {"slice": SLICE,

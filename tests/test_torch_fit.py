@@ -29,6 +29,7 @@ from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel
 from npswf_tpu_torch.models.waveform import get_model
 from tests.test_fit import _build_inputs
 from tests.test_pallas_lm import _assert_match, _narrow
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 
 def _t(a):
@@ -152,6 +153,99 @@ def test_error_model_and_cholesky_match_jax(cfg):
     np.testing.assert_allclose(ours, np.asarray(jax_cholesky_solve(
         jnp.asarray(A), jnp.asarray(b))), rtol=1e-12, atol=1e-14)
     np.testing.assert_allclose(np.einsum("nij,nj->ni", A, ours), b, atol=1e-10)
+
+
+def _nan_max(v, lo):
+    """torch.clamp(v, min=lo): NaN passes through."""
+    return v if np.isnan(v) else max(v, lo)
+
+
+def _sqrt(v):
+    """torch's square root of one value, as the plain version takes it of
+    a one-lane batch (on the CPU it may differ from numpy's in the last
+    bit; on the card both sides round it exactly)."""
+    return torch.sqrt(torch.as_tensor(np.array([v]))).numpy()[0]
+
+
+def _wide_schedule_solve(A, b, eps):
+    """A x = b for one SPD system in csrc/lm_wide.cu's schedule, one value
+    and one rounding at a time (A, b numpy of the working type): row 0 of
+    the factor divided by its d at once; then at step s every trailing
+    entry (a, c), a > s, of the upper triangle takes its one subtraction
+    L(s, a) L(s, c), and row s + 1 is divided by its d; the forward solve
+    one column behind (row i subtracts L(s - 1, i) y(s - 1) at step s);
+    the back solve with the products L(q, k) x(k) formed once x(k) is
+    known, row r subtracting them in ascending k after its first term,
+    L(r, r + 1) x(r + 1), which it forms itself."""
+    ft = A.dtype.type
+    M = A.shape[0]
+    eps = ft(eps)
+    S = {(a, c): A[a, c] for a in range(M) for c in range(a, M)}
+    dg = [None] * M
+    d0 = _sqrt(_nan_max(S[0, 0], eps))
+    for c in range(M):
+        if c == 0:
+            dg[0] = S[0, 0] / d0
+        else:
+            S[0, c] = S[0, c] / d0
+    for s in range(M - 1):
+        # every trailing entry once, last row first: the order within a
+        # step is free, the subtractions of one entry run in s
+        for a in range(M - 1, s, -1):
+            la = S[s, a]
+            d = _sqrt(_nan_max(S[a, a] - la * la, eps)) if a == s + 1 else None
+            for c in range(M - 1, a - 1, -1):
+                x = S[a, c] - la * S[s, c]
+                if d is None:
+                    S[a, c] = x
+                elif c == a:
+                    dg[a] = x / d
+                else:
+                    S[a, c] = x / d
+    acc = list(b)
+    y = [None] * M
+    for s in range(M):
+        for i in range(s, M):
+            if s > 0:
+                acc[i] = acc[i] - S[s - 1, i] * y[s - 1]
+        y[s] = acc[s] / dg[s]
+    x = [None] * M
+    prod = {}
+    for r in range(M - 1, -1, -1):
+        a = y[r]
+        if r + 1 < M:
+            a = a - S[r, r + 1] * x[r + 1]
+        for k in range(r + 2, M):
+            a = a - prod[r, k]
+        x[r] = a / dg[r]
+        for q in range(r - 1):
+            prod[q, r] = S[q, r] * x[r]
+    return np.array(x, dtype=ft)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("M", [33, 49])
+def test_cholesky_solve_runs_in_the_wide_kernels_order(M, dtype):
+    """fit/linalg.py::cholesky_solve, the plain version of K3's solve,
+    equals csrc/lm_wide.cu's schedule bit for bit on seeded damped,
+    Jacobi-scaled SPD systems: the right-looking factor entry by entry, the
+    forward solve column by column, the back solve with its products formed
+    first and subtracted in ascending k. The card's kernel is bit-equal to
+    the plain version only while the plain version keeps this order."""
+    rng = np.random.default_rng(M)
+    for lam in (1e-3, 1.0, 30.0):
+        X = rng.normal(size=(M, M + 7))
+        A = X @ X.T
+        sc = np.sqrt(np.diag(A))
+        As = (A / (sc[:, None] * sc[None, :])).astype(dtype)
+        As = np.triu(As) + np.triu(As, 1).T            # exactly symmetric
+        np.fill_diagonal(As, dtype(1) + dtype(lam))
+        b = rng.normal(size=M).astype(dtype)
+        ours = _wide_schedule_solve(As, b, 1e-30)
+        ref = cholesky_solve(torch.as_tensor(As[None]), torch.as_tensor(b[None]),
+                             1e-30)[0].numpy()
+        assert ref.dtype == ours.dtype
+        np.testing.assert_array_equal(ref.view(np.uint8), ours.view(np.uint8))
 
 
 def test_unported_models_raise():

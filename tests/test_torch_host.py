@@ -82,6 +82,7 @@ import npswf_tpu_torch.tools.plotstats as plotstats
 import npswf_tpu_torch.tools.solver_audit as solver_audit
 import npswf_tpu_torch.utils.synthetic as synthetic
 import npswf_tpu_torch.utils.timers as timers
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 PAIRS = [(config, jax_config), (calibration, jax_calibration),
          (synthetic, jax_synthetic), (rawstream, jax_rawstream),

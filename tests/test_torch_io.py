@@ -32,6 +32,7 @@ from npswf_tpu_torch.io.rawstream import (build_segment, encode_event_stream,
 from npswf_tpu_torch.io.writer import WFWriter, flatten_pulses, flatten_pulses_np
 from npswf_tpu_torch.runtime.executor import output_to_host
 from npswf_tpu_torch.utils.synthetic import make_events
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 HIT_FIELDS = ("adc_counter", "pulse_time", "pulse_time_raw", "pulse_amp",
               "pulse_int", "pulse_ped")

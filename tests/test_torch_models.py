@@ -24,6 +24,7 @@ from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
 from npswf_tpu_torch.engine.pipeline import process_batch
 from npswf_tpu_torch.models.waveform import get_model
 from tests.test_models import _biexp_shape
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 AUX = {"gaussian": (("width", 3.5),),
        "biexp": (("tau_r", 1.8), ("tau_d", 9.0))}

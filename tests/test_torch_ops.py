@@ -27,6 +27,7 @@ from npswf_tpu_torch.ops.peak_search import (find_pulses, search_operands,
 from npswf_tpu_torch.ops.search_kernel import search_operands_kernel
 from npswf_tpu_torch.ops.spline import spline_eval_grad
 from tests.test_fixtures import FIXTURE_PATH
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 with open(FIXTURE_PATH) as _f:
     _FIXTURES = json.load(_f)["fixtures"]

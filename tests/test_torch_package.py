@@ -241,14 +241,18 @@ def test_lm_kernel_bit_equal_to_plain(card, dtype, P, max_pulses, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 37])
-@pytest.mark.parametrize("P", [16, 24, "limit"])
+@pytest.mark.parametrize("P", [16, 17, 24, 31, 32, 48, 63, 64, "limit"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_lm_kernel_wide_bit_equal_to_plain(card, dtype, P, n):
     """K3's wide unit (csrc/lm_wide.cu, P at run time) against its plain
-    version on retry-shaped calls of up to 8 pulses a lane: u, chi2, conv,
-    n_iter and lambda equal on every lane. At the limit (the widest P whose
-    lane fits a block, lm_max_pulses) the call's iterations are cut to 4:
-    the plain version's substitutions take M^2 launches an iteration."""
+    version on retry-shaped calls of up to 8 pulses a lane, with lambda0
+    per lane (three decades) and budgets from 0 to the cap: u, chi2, conv,
+    n_iter and lambda equal on every lane. The widths put M = 1 + 2P on
+    both sides of 32, 64 (the team's 128 threads, then 256) and 128, and
+    the Gram owner blocks' ragged edge (M + 1 mod 4) through every value.
+    At the limit (the widest P whose lane fits a block, lm_max_pulses) the
+    call's iterations are cut to 4: the plain version's substitutions take
+    M^2 launches an iteration."""
     from chip_smoke import lm_equal, lm_retry_inputs
     from npswf_tpu_torch.fit.lm_kernel import (lm_max_pulses, lm_solve_kernel,
                                                lm_solve_plain)
@@ -261,10 +265,24 @@ def test_lm_kernel_wide_bit_equal_to_plain(card, dtype, P, n):
                                 card))
     if limit:
         args[10] = 4
+    idx = torch.arange(n, device=card)
+    args[11] = (cfg.lm_lambda_init * 10.0 ** (idx % 3)).to(dtype)
+    args[12] = torch.where(idx % 7 == 3, 0, (idx * 5) % (args[10] + 1)
+                           ).to(torch.int32)
     k = lm_solve_kernel(cfg, *args)
     p = lm_solve_plain(cfg, *args)
     torch.cuda.synchronize()
     assert lm_equal(torch, k, p) == n
+
+
+@pytest.mark.cuda
+def test_lm_max_pulses_keeps_every_width(card):
+    """The wide unit takes at least the widths its first design took at
+    K = 90 on an H100 (71 pulses in fp64, 106 in fp32)."""
+    from npswf_tpu_torch.fit.lm_kernel import lm_max_pulses
+    K = NPSConfig().nfitbins
+    assert lm_max_pulses(K, torch.float64) >= 71
+    assert lm_max_pulses(K, torch.float32) >= 106
 
 
 def _system_cases(n, P, max_pulses, dtype, dev):
@@ -319,7 +337,7 @@ def test_system_kernels_launch_once(card, P, max_pulses):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernels_refuse_widths_they_do_not_take(card, dtype):
     """K3 takes a width while one lane's arrays fit a block (lm_max_pulses:
-    71 in fp64 and 106 in fp32 at K = 90 on an H100) and K6 while one
+    77 in fp64 and 112 in fp32 at K = 90 on an H100) and K6 while one
     lane's tile fits (61 at K = 90): wider calls raise before any launch."""
     from npswf_tpu_torch.fit.eval_kernel import SEG, fused_system
     from npswf_tpu_torch.fit.lm_kernel import lm_max_pulses, lm_solve_kernel

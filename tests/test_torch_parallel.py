@@ -9,6 +9,8 @@ package, so the children import no jax. The batch is tests/test_parallel.py's
 are bit-equal to its single-device ones and its decisions equal the JAX
 package's.
 """
+import contextlib
+import faulthandler
 import os
 
 import jax
@@ -36,15 +38,38 @@ from npswf_tpu_torch.parallel.dryrun import (dryrun, dryrun_batch,
 from npswf_tpu_torch.parallel.mesh import (make_mesh, sharded_cluster_sums,
                                            sharded_process_batch)
 from npswf_tpu_torch.runtime.executor import run_segment
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 E = 8
 DECISIONS = ("wfnpulse", "gate", "fit_converged")
+# a test's time limit (s): a rank that waits at a collective for a dead
+# peer would otherwise hold the worker for parallel.mesh.RANK_TIMEOUT (10
+# minutes); past the limit the worker dumps its threads' stacks and exits,
+# which fails the test
+RANK_LIMIT_S = 300
 COUNTERS = ("n_fit_success", "n_fit_failure", "n_fit_dropped", "n_high_pulse",
             "n_search_dropped")
 
 
 def _port(cfg):
     return TorchConfig.from_json(cfg.to_json())
+
+
+@contextlib.contextmanager
+def _time_limit(seconds=RANK_LIMIT_S):
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+@pytest.fixture(autouse=True)
+def _limited():
+    """Every test of this file under RANK_LIMIT_S (its calls and the
+    waits for its launches)."""
+    with _time_limit():
+        yield
 
 
 def _cpu_mesh(cfg, n_data, n_block):
@@ -179,9 +204,10 @@ def segment_files(f64, cal, tmp_path_factory):
     seg = build_segment(cfg, streams * 2, hits * 2, evt=np.arange(8.0),
                         runnum=np.full(8, 3000.0))
     one, two = str(tmp / "one.npz"), str(tmp / "mesh.npz")
-    r1 = run_segment(cfg, pcal, seg, one, batch_size=4, device="cpu")
-    r2 = run_segment(cfg, pcal, seg, two, batch_size=4,
-                     mesh=_cpu_mesh(f64, 2, 2))
+    with _time_limit():
+        r1 = run_segment(cfg, pcal, seg, one, batch_size=4, device="cpu")
+        r2 = run_segment(cfg, pcal, seg, two, batch_size=4,
+                         mesh=_cpu_mesh(f64, 2, 2))
     assert r1.n_fit_success == r2.n_fit_success > 0
     return one, two
 

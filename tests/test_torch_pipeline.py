@@ -8,7 +8,9 @@ all three fit buckets (M = 3, 5, 25) carry lanes.
 Seed note: on some seeds the JAX package's own layouts disagree with each
 other on a lane at fp64 (its XLA reduction trees differ with the system
 width, see tests/test_routing.py); seed 5 is one where they agree, so exact
-agreement is a property of the port and not of the seed.
+agreement is a property of the port and not of the seed. The batch at
+bucket widths 5, 10, 15 and 20 is in tests/test_torch_pipeline_widths.py,
+so that pytest-xdist's loadfile runs the two files on two workers.
 """
 import jax
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from npswf_tpu.utils.synthetic import make_events
 from npswf_tpu_torch.core.config import NPSConfig as TorchConfig
 from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
 from npswf_tpu_torch.engine.pipeline import process_batch
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 E = 4
 EXACT = ("wfnpulse", "pulse_valid", "gate", "fit_converged", "fit_n_iter",
@@ -29,13 +32,17 @@ EXACT = ("wfnpulse", "pulse_valid", "gate", "fit_converged", "fit_n_iter",
          "n_fit_dropped", "n_high_pulse", "n_search_dropped")
 
 
-_JAX_REFS = {}
+@pytest.fixture(scope="module")
+def jax_refs():
+    """The JAX package's outputs by (config, dtype, seed), each computed
+    once a module: the fp64 batch under cfg3 serves four tests."""
+    return {}
 
 
-def _run_both(cfg, cal, dtype, seed=5, **port_flags):
+def _run_both(refs, cfg, cal, dtype, seed=5, **port_flags):
     """The batch through the JAX package under ``cfg`` (its XLA route, one
-    compile per config and dtype) and through the port under ``cfg`` with
-    ``port_flags``."""
+    compile per config and dtype, kept in ``refs``) and through the port
+    under ``cfg`` with ``port_flags``."""
     npt = np.float64 if dtype == torch.float64 else np.float32
     truth = make_events(cfg, cal, E, occupancy=0.4, max_pulses=4,
                         pileup_prob=0.9, seed=seed)
@@ -43,19 +50,19 @@ def _run_both(cfg, cal, dtype, seed=5, **port_flags):
     corr = np.random.default_rng(11).uniform(-2, 2, E).astype(npt)
     arrays = cal.device_arrays(cfg.replace(compute_dtype=np.dtype(npt).name))
     key = (cfg, dtype, seed)
-    if key not in _JAX_REFS:
+    if key not in refs:
         jcal = {k: jnp.asarray(v) for k, v in arrays.items()}
         jb = JaxEventBatch(signal=jnp.asarray(sig),
                            pres=jnp.asarray(truth.pres.astype(bool)),
                            corr_time_HMS=jnp.asarray(corr), evt=jnp.arange(E),
                            runnum=jnp.zeros(E, jnp.int32))
         ref = jax.jit(lambda b: jax_process_batch(cfg, jcal, b))(jb)
-        _JAX_REFS[key] = {f: np.asarray(getattr(ref, f)) for f in ref._fields}
+        refs[key] = {f: np.asarray(getattr(ref, f)) for f in ref._fields}
     ours = process_batch(TorchConfig.from_json(cfg.to_json()).replace(**port_flags),
                          calib_to_torch(arrays, "cpu", dtype),
                          batch_to_torch(sig, truth.pres, corr, "cpu", dtype))
     ours = {f: getattr(ours, f).numpy() for f in ours._fields}
-    return ours, _JAX_REFS[key]
+    return ours, refs[key]
 
 
 @pytest.fixture(scope="module")
@@ -72,43 +79,11 @@ def _assert_fp64_match(ours, ref):
                                        err_msg=f)
 
 
-def test_process_batch_matches_jax_fp64(cfg3, small_cal):
+def test_process_batch_matches_jax_fp64(jax_refs, cfg3, small_cal):
     """Every decision and counter exact; every float to 1e-9 relative."""
-    ours, ref = _run_both(cfg3, small_cal, torch.float64)
+    ours, ref = _run_both(jax_refs, cfg3, small_cal, torch.float64)
     n = ours["wfnpulse"][ours["gate"]]
     assert (n == 1).any() and (n == 2).any() and (n >= 3).any()   # 3 buckets
-    assert ours["fit_converged"].sum() >= 30
-    _assert_fp64_match(ours, ref)
-
-
-# bucket bounds that send lanes to widths outside the defaults' 2, 4 and 12:
-# (config changes, the bucket widths, the pulse counts each bucket takes)
-BUCKET_WIDTHS = {
-    "mid5": (dict(fit_small_pulses=1, fit_mid_pulses=5), ((1, 1, 1), (5, 2, 5))),
-    "wide10": (dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=10),
-               ((2, 1, 2), (10, 3, 10))),
-    # K3 up to its widest instantiation: the wide bucket at P = 15 on the
-    # default route (pallas_lm_max_pulses raised with it)
-    "wide15": (dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=15,
-                    pallas_lm_max_pulses=15), ((2, 1, 2), (15, 3, 15))),
-    # above the compiled widths: K3's wide unit (P at run time) at P = 20
-    "wide20": (dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=20,
-                    pallas_lm_max_pulses=20), ((2, 1, 2), (20, 3, 20))),
-}
-
-
-@pytest.mark.parametrize("case", list(BUCKET_WIDTHS))
-def test_process_batch_bucket_widths_match_jax_fp64(small_cfg, small_cal, case):
-    """Buckets of width 5, 10, 15 and 20 (a middle bound of 5; the wide
-    bucket at maxwfpulses=10, and at 15 and 20 with pallas_lm_max_pulses
-    raised with it: K3's widest compiled width, and its wide unit) carry
-    lanes, and the default route matches the JAX package: decisions and
-    counters exact, floats to 1e-9 relative."""
-    changes, buckets = BUCKET_WIDTHS[case]
-    ours, ref = _run_both(small_cfg.replace(**changes), small_cal, torch.float64)
-    n = ours["wfnpulse"][ours["gate"]]
-    for width, lo, hi in buckets:
-        assert ((n >= lo) & (n <= hi)).any(), f"bucket of width {width} empty"
     assert ours["fit_converged"].sum() >= 30
     _assert_fp64_match(ours, ref)
 
@@ -119,17 +94,17 @@ SLICE = dict(use_pallas_lm=False, pallas_search_select=True)
 @pytest.mark.parametrize("flags", [SLICE, dict(SLICE, use_fused_neq=True),
                                    dict(SLICE, use_fused_system=True)],
                          ids=["slice", "fused_neq", "fused_system"])
-def test_process_batch_routes_match_jax_fp64(cfg3, small_cal, flags):
+def test_process_batch_routes_match_jax_fp64(jax_refs, cfg3, small_cal, flags):
     """The port's generic LM loop (K5 + batched normal equations, K5 + K7,
     K6) and its in-kernel top-P search (K4), all as plain versions here,
     against the JAX package's XLA route: decisions and counters exact,
     floats to 1e-9 relative."""
-    ours, ref = _run_both(cfg3, small_cal, torch.float64, **flags)
+    ours, ref = _run_both(jax_refs, cfg3, small_cal, torch.float64, **flags)
     assert ours["fit_converged"].sum() >= 30
     _assert_fp64_match(ours, ref)
 
 
-def test_process_batch_matches_jax_fp32(cfg3, small_cal):
+def test_process_batch_matches_jax_fp32(jax_refs, cfg3, small_cal):
     """fp32, flip-aware two-tier check (after tests/test_routing.py).
 
     The search and the gate are exact. In the fit, fp32 summation order
@@ -140,7 +115,7 @@ def test_process_batch_matches_jax_fp32(cfg3, small_cal):
     of the lanes; flipped lanes that converged on both sides must agree
     to the 0.05-bin fp32 parity bar (tests/test_fit.py::
     test_fp32_matches_fp64) at the 90% quantile."""
-    ours, ref = _run_both(cfg3, small_cal, torch.float32)
+    ours, ref = _run_both(jax_refs, cfg3, small_cal, torch.float32)
     for f in ("wfnpulse", "pulse_valid", "gate", "search_overflow"):
         np.testing.assert_array_equal(ours[f], ref[f], err_msg=f)
     conv_o, conv_r = ours["fit_converged"], ref["fit_converged"]
@@ -159,12 +134,12 @@ def test_process_batch_matches_jax_fp32(cfg3, small_cal):
     assert np.quantile(dt_bins, 0.9) < 0.05
 
 
-def test_process_batch_capacities_match_jax(small_cfg, small_cal):
+def test_process_batch_capacities_match_jax(jax_refs, small_cfg, small_cal):
     """search_capacity and fit_capacity below the lane count: the
     compacted search, the compacted narrow bucket, the overflow flags and
     the drop counters, exact at fp64."""
     cfg = small_cfg.replace(search_capacity=100, fit_capacity=24)
-    ours, ref = _run_both(cfg, small_cal, torch.float64)
+    ours, ref = _run_both(jax_refs, cfg, small_cal, torch.float64)
     assert ours["n_search_dropped"] > 0 and ours["n_fit_dropped"] > 0
     _assert_fp64_match(ours, ref)
 

@@ -11,6 +11,7 @@ import pytest
 
 from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch.tools import cli, perf_probe
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 PROBES = {
     "measure-link": (["--cpu", "--n", "2", "--size-mb", "1"],

@@ -40,6 +40,7 @@ from npswf_tpu_torch.runtime.executor import run_segment
 from npswf_tpu_torch.tools.cli import main as cli_main, synth_records
 from npswf_tpu_torch.tools.plotstats import validate
 from npswf_tpu_torch.utils.synthetic import make_events
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH = 4

@@ -23,6 +23,7 @@ from npswf_tpu_torch.tools.parity import compare, load_wf, load_wf_npz
 from npswf_tpu_torch.utils.synthetic import make_events
 from tests.test_convert_root import fake_root  # noqa: F401 (a fixture)
 from tests.uproot_stub import install_stub
+import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 HAVE_MATPLOTLIB = importlib.util.find_spec("matplotlib") is not None
 
