@@ -21,7 +21,14 @@ packet, the present-lane upload), once plain and once in chains of 4, and
 held to those of its batches run alone (plus the batches its dense
 fallback reran), the file's checks, the packet path against the dense path
 on the first two batches, the stage medians; then the CLI (synth, run, validate) in a
-subprocess. The ``[models]`` phase fits the dense batch with the gaussian
+subprocess. ``[search-wide]`` holds K2 and K4 at TSpectrum sigmas and
+Markov windows past the default frame's margin (sigma 2.6, 3, 4, 10;
+windows 17, 24, 64) and at the widest the card takes
+(``ops.search_kernel.search_max_reach``) to their plain versions on the
+dense batch's lanes, refuses one past each limit, runs the dense batch at
+sigma = 3, threshold 0.05 on the default and slice routes against the
+plain path, and reproduces the SearchHighRes fixtures through K2 and K4.
+The ``[models]`` phase fits the dense batch with the gaussian
 and biexp families (K1 and K2, then the generic loop in plain PyTorch),
 against the plain path, timed, and a batch of true gaussian pulses against
 its truth; ``[k3-wide]`` holds K3 at 13-15 pulses (compiled widths) and at
@@ -38,13 +45,15 @@ then the dense segment through ``run_segment`` on a 2x2 mesh, its WF file
 against the single-device one; ``[probes]`` runs measure-link, perf-probe
 floor, e2e-bench and glue-profile through the CLI. It prints one JSON line
 of kernel records (times, launches, bounds), one each of the segment runs,
-the buckets, the model families, K3's wide widths, the tools, the mesh and
+the buckets, the model families, K3's wide widths, the wide search
+settings, the tools, the mesh and
 the probes, the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero. It imports no jax. Without a CUDA device, or
 outside the repository, it exits non-zero and prints no result.
 
-``python3 chip_smoke.py --time-systems ROOT`` only times K6 and K7 (the
+``python3 chip_smoke.py --time-systems ROOT`` only times K2 and K4 at the
+default search settings, K6 and K7 (the
 wrapper and the kernel alone) and K3's wide unit at P = 24, and ``--time-route ROOT`` only the default
 route's batch, with the package of the checkout at ROOT, to compare two
 checkouts on one card in turns.
@@ -94,6 +103,13 @@ WIDE_BUCKETS = dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=15,
                     pallas_lm_max_pulses=15)
 WIDE_BUCKETS_24 = dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=24,
                        pallas_lm_max_pulses=24)
+# [search-wide]: (spec_sigma, spec_aver_window) past the default frame's
+# 16-row margin (Gold reaches 17, 20, 26, 67; windows 17, 24, 64), held on
+# the dense batch's lanes beside the reach's two limits; the fixture
+# setting the batch runs at
+SEARCH_WIDE = ((2.6, 3), (3.0, 3), (4.0, 3), (10.0, 3), (2.0, 17),
+               (2.0, 24), (2.0, 64))
+SEARCH_WIDE_BATCH = dict(spec_sigma=3.0, specthres=0.05)
 # [mesh]: the mesh shapes of gloo ranks sharing cuda:0 (a world of one rank
 # on NCCL runs first), and the shape of the segment run
 MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
@@ -1509,6 +1525,241 @@ def check_k3_wide(torch, dev, card):
             "batch": runs[15], "batch_24": runs[24]}
 
 
+# ---------------------------------------------------------------------
+# K2 and K4 at wide search settings
+# ---------------------------------------------------------------------
+def reach_configs(cfg, T, dtype, dev):
+    """The configurations at and one past K2/K4's reach over T bins
+    (ops.search_kernel.search_max_reach): the widest sigma whose Gold
+    reach lh_gold - 1 the kernel takes and the next one (found by
+    bisection: the reach falls and lh_gold - 1 rises with sigma), and the
+    widest window at cfg's sigma and one more. {name: (config, taken)}."""
+    from npswf_tpu_torch.ops.peak_search import search_geometry
+    from npswf_tpu_torch.ops.search_kernel import search_max_reach
+
+    def taken(sigma):
+        c = cfg.replace(spec_sigma=sigma)
+        return search_geometry(c, T)[4] - 1 <= search_max_reach(
+            c, T, dtype, dev)[0]
+    lo, hi = cfg.spec_sigma, 8.0 * cfg.spec_sigma
+    while taken(hi):
+        lo, hi = hi, 2.0 * hi
+    for _ in range(60):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if taken(mid) else (lo, mid)
+    window = search_max_reach(cfg, T, dtype, dev)[1]
+    return {"lag limit": (cfg.replace(spec_sigma=lo), True),
+            "lag limit + 1": (cfg.replace(spec_sigma=hi), False),
+            "window limit": (cfg.replace(spec_aver_window=window), True),
+            "window limit + 1": (cfg.replace(spec_aver_window=window + 1),
+                                 False)}
+
+
+def setting(cfg, T):
+    """sigma, lh_gold - 1 and window of a configuration, for the log."""
+    from npswf_tpu_torch.ops.peak_search import search_geometry
+    return (f"sigma={cfg.spec_sigma:.6g} (lh_gold-1 = "
+            f"{search_geometry(cfg, T)[4] - 1}), window={cfg.spec_aver_window}")
+
+
+def search_pair_equal(torch, cfg, s, a, P):
+    """K2 (P = 0) or K4 against its plain version: values differing on
+    each of the four outputs (a NaN matching a NaN), and the outputs."""
+    from npswf_tpu_torch.ops.peak_search import search_operands, search_topk
+    from npswf_tpu_torch.ops.search_kernel import (search_operands_kernel,
+                                                   search_topk_kernel)
+    if P:
+        k = search_topk_kernel(cfg, s, a, -1, P)
+        p = search_topk(cfg, s, a, -1, P)
+    else:
+        k = search_operands_kernel(cfg, s, a, -1)
+        p = search_operands(cfg, s, a, -1)
+    torch.cuda.synchronize()
+    return [n_unequal(torch, x, y) for x, y in zip(k, p)], k, p
+
+
+def time_search(torch, cfg, s, a, P):
+    """K2 (P = 0) or K4 at fp32: wrapper ms (CUDA events), the kernel
+    alone (profiler), plain ms and the bound."""
+    from npswf_tpu_torch.ops.peak_search import search_operands, search_topk
+    from npswf_tpu_torch.ops.search_kernel import (search_operands_kernel,
+                                                   search_topk_kernel)
+    N, T = s.shape
+    if P:
+        fn = lambda: search_topk_kernel(cfg, s, a, -1, P)  # noqa: E731
+        plain = lambda: search_topk(cfg, s, a, -1, P)  # noqa: E731
+        out_bytes = 4 * N * P * s.element_size()
+    else:
+        fn = lambda: search_operands_kernel(cfg, s, a, -1)  # noqa: E731
+        plain = lambda: search_operands(cfg, s, a, -1)  # noqa: E731
+        out_bytes = 4 * nbytes(s)
+    return {"ms": cuda_ms(torch, fn, 10),
+            "kernel_ms": kernel_ms(torch, fn, 10, "search_kernel"),
+            "plain_ms": cuda_ms(torch, plain, 2),
+            **bound(nbytes(s, a) + out_bytes, ops_search(cfg, N, T, P))}
+
+
+def check_search_wide(torch, cfg, cal, calib, truth, batch, dev, card):
+    """The [search-wide] phase. On the dense batch's lanes (the
+    fp32-quantized filter output, the raw signal), K2 and K4 (P =
+    maxwfpulses) at SEARCH_WIDE and at the reach's limits
+    (reach_configs), fp32 and fp64, every output bit-equal to the plain
+    version's, each timed at fp32; one past each limit refused before any
+    launch. Then process_batch at SEARCH_WIDE_BATCH on the default route
+    (K1, K2, K3) and the slice route (K1, K4, K5), no plain call, and
+    wfnpulse, gate and fit_converged equal to the plain path's on every
+    block; then every SearchHighRes fixture (tests/data) through K2 and
+    K4."""
+    from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.engine.pipeline import process_batch
+    from npswf_tpu_torch.ops.matched_filter import matched_filter
+    from npswf_tpu_torch.ops.peak_search import tspectrum_search
+    from npswf_tpu_torch.ops.search_kernel import (search_max_reach,
+                                                   search_operands_kernel)
+    from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
+    lanes = mf_lanes(torch, cal, truth.signal, dev)
+    src = matched_filter(cfg, *lanes).to(torch.float32).to(torch.float64)
+    aux = lanes[0]
+    del lanes
+    N, T = src.shape
+    P = cfg.maxwfpulses
+    summary = {"reach": {}, "cases": {}, "timed": {}, "refused": []}
+    for dt in (torch.float64, torch.float32):
+        s, a = src.to(dt), aux.to(dt)
+        reach = reach_configs(cfg, T, dt, dev)
+        lag, window = search_max_reach(cfg, T, dt, dev)
+        summary["reach"][str(dt)] = {
+            "lag": lag, "window_at_default_sigma": window,
+            "lag_limit_sigma": reach["lag limit"][0].spec_sigma}
+        say("search-wide", f"{dt} reach at T = {T}: lh_gold-1 <= {lag}, "
+                           f"window <= {window} at sigma = {cfg.spec_sigma}; "
+                           f"the widest Gold reach at {setting(reach['lag limit'][0], T)} "
+                           f"({card})")
+        cases = [(f"sigma={sg} window={w}",
+                  cfg.replace(spec_sigma=sg, spec_aver_window=w))
+                 for sg, w in SEARCH_WIDE]
+        cases += [(name, c) for name, (c, ok) in reach.items() if ok]
+        for name, c in cases:
+            for kname, p in (("K2", 0), ("K4", P)):
+                ndiff, k, pl = search_pair_equal(torch, c, s, a, p)
+                n_acc = int(torch.isfinite(pl[0]).sum())
+                say("search-wide", f"{kname} {dt} {setting(c, T)}: {n_acc} "
+                                   f"accepted; values differing bitwise "
+                                   f"(negkey, cent, pos_y, aux) {ndiff}")
+                check(n_acc > 0, f"[search-wide] no peak accepted at {name}")
+                check(sum(ndiff) == 0, f"[search-wide] {kname} not bit-equal "
+                                       f"at {name} {dt}")
+                summary["cases"][f"{kname} {name} {dt}"] = {
+                    "setting": setting(c, T), "accepted": n_acc,
+                    "max_abs_err": max_abs_diff(torch, zip(k, pl))}
+                del k, pl
+                if dt == torch.float32:
+                    rec = summary["timed"][f"{kname} {name}"] = time_search(
+                        torch, c, s, a, p)
+                    say("search-wide", f"{kname} fp32 {setting(c, T)}: "
+                                       f"{rec['ms']:.4f} ms (kernel "
+                                       f"{rec['kernel_ms']}), plain "
+                                       f"{rec['plain_ms']:.4f} ms, bound "
+                                       f"{rec['bound_ms']:.4f} ms "
+                                       f"({rec['bound_by']}) ({card})")
+        for name, (c, ok) in reach.items():
+            if ok:
+                continue
+            kernels.reset_counts()
+            try:
+                search_operands_kernel(c, s[:8], a[:8], -1)
+                refused = False
+            except ValueError:
+                refused = True
+            check(refused and not kernels.launches,
+                  f"[search-wide] K2 took {name} ({setting(c, T)}) {dt}")
+            summary["refused"].append(f"{name} {dt}: {setting(c, T)}")
+            say("search-wide", f"{name} {dt} ({setting(c, T)}) refused "
+                               f"before any launch")
+        del s, a
+    del src, aux
+
+    wide = cfg.replace(**SEARCH_WIDE_BATCH)
+    E, B, _ = batch.signal.shape
+    summary["batch"] = {}
+
+    def timed(rc):
+        """Host clock around one synchronized batch, in ms."""
+        t0 = time.perf_counter()
+        process_batch(rc, calib, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    for route in ("default", "slice"):
+        rc = wide.replace(**ROUTE_FLAGS[route])
+        must, zero = ROUTES[route]
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = process_batch(rc, calib, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, plain = dict(kernels.launches), dict(kernels.plain_calls)
+        med = float(np.median([timed(rc) for _ in range(3)]))
+        ref = process_batch(rc, calib, batch, plain=True)
+        diff = {f: int((getattr(out, f) != getattr(ref, f)).sum())
+                for f in ("wfnpulse", "gate", "fit_converged")}
+        n_fail = int(out.n_fit_failure)
+        rate = n_fail / max(int(out.n_fit_success) + n_fail, 1)
+        say("search-wide", f"{route} at {SEARCH_WIDE_BATCH}: {med:.3f} ms "
+                           f"a batch (median of 3 after a first call of "
+                           f"{ms:.1f} ms), pulses {int(out.wfnpulse.sum())}, "
+                           f"failure rate {rate:.4%} ({n_fail} fits); "
+                           f"launches {launches}; plain calls {plain}; "
+                           f"against the plain path, values differing "
+                           f"{diff} of {E * B} ({card})")
+        for name in must:
+            check(launches.get(name, 0) > 0,
+                  f"[search-wide] {route}: kernel {name} not launched")
+        for name in zero:
+            check(launches.get(name, 0) == 0,
+                  f"[search-wide] {route}: kernel {name} launched")
+        check(not plain, f"[search-wide] {route}: plain versions ran")
+        check(not any(diff.values()),
+              f"[search-wide] {route}: differs from the plain path: {diff}")
+        for f, v in out._asdict().items():
+            if v.is_floating_point():
+                check(bool(torch.isfinite(v).all()),
+                      f"[search-wide] {route}: {f} not finite")
+        summary["batch"][route] = {"ms": med, "first_ms": ms,
+                                   "failure_rate": rate,
+                                   "pulses": int(out.wfnpulse.sum()),
+                                   "launches": launches, "differ": diff}
+        del out, ref
+
+    with open(os.path.join(REPO, "tests", "data",
+                           "searchhighres_fixtures.json")) as f:
+        fixtures = json.load(f)["fixtures"]
+    for select, kname in ((False, "search_operands"), (True, "search_topk")):
+        for fx in fixtures:
+            c = cfg.replace(spec_sigma=fx["sigma"],
+                            specthres=fx["threshold_frac"],
+                            maxwfpulses=fx["max_peaks"],
+                            spec_decon_iterations=fx["decon_iterations"],
+                            spec_aver_window=fx["aver_window"],
+                            pallas_search_select=select)
+            s = torch.as_tensor(np.asarray(fx["source"], np.float64),
+                                device=dev)[None, :]
+            kernels.reset_counts()
+            px, py, valid = tspectrum_search(c, s)
+            v = valid[0].cpu().numpy()
+            got = (list(px[0].cpu().numpy()[v]), list(py[0].cpu().numpy()[v]))
+            check(kernels.launches.get(kname, 0) == 1
+                  and not kernels.plain_calls,
+                  f"[search-wide] fixture {fx['name']} not through {kname}")
+            check(got == (fx["expected_pos_x"], fx["expected_pos_y"]),
+                  f"[search-wide] fixture {fx['name']} through {kname}: "
+                  f"{got}")
+        say("search-wide", f"{len(fixtures)} SearchHighRes fixtures (with "
+                           f"prod_sigma3_threshold5) reproduced through "
+                           f"{kname}")
+    summary["fixtures"] = len(fixtures)
+    return summary
+
+
 def host_cpu():
     """The host's name, CPU model and core count (for host-clock numbers)."""
     import platform
@@ -1730,20 +1981,37 @@ def check_probes(card):
 
 
 def time_systems(torch, card):
-    """K6 at P = 2 and 12 and K7 at P = 2, fp32, N = 69,120, as a wrapper
-    call (CUDA events) and as the kernel alone (the profiler's device
-    time), and K3's wide unit at P = 24 fp32 on 4,096 lanes (a wrapper
-    call), for whichever package the path finds first: run it once for
-    each of two checkouts, in turns, to compare them on one card."""
+    """K2 and K4 (P = 12) at the default search settings, K6 at P = 2 and
+    12 and K7 at P = 2, fp32, N = 69,120, as a wrapper call (CUDA events)
+    and as the kernel alone (the profiler's device time), and K3's wide
+    unit at P = 24 fp32 on 4,096 lanes (a wrapper call), for whichever
+    package the path finds first: run it once for each of two checkouts,
+    in turns, to compare them on one card."""
     from npswf_tpu_torch import kernels
     from npswf_tpu_torch.core.calibration import synthetic_calibration
     from npswf_tpu_torch.core.config import NPSConfig
     from npswf_tpu_torch.fit.eval_kernel import fused_neq, fused_system
+    from npswf_tpu_torch.ops.matched_filter import matched_filter
+    from npswf_tpu_torch.ops.search_kernel import (search_operands_kernel,
+                                                   search_topk_kernel)
     cfg = NPSConfig(compute_dtype="float32")
     cal = synthetic_calibration(cfg, seed=1)
     kernels.library()
     n = cal.nblocks * E_BENCH
     res = {}
+    dev = torch.device("cuda", 0)
+    truth, _ = bench_batch(torch, cfg, cal, dev)
+    lanes = mf_lanes(torch, cal, truth.signal, dev)
+    # check_search's inputs: the filter output quantized to fp32, the signal
+    s = matched_filter(cfg, *lanes).to(torch.float32)
+    a = lanes[0].to(torch.float32)
+    P = cfg.maxwfpulses
+    for name, fn in (("search_operands", lambda: search_operands_kernel(cfg, s, a, -1)),
+                     (f"search_topk P={P}",
+                      lambda: search_topk_kernel(cfg, s, a, -1, P))):
+        res[name] = {"ms": cuda_ms(torch, fn, 20),
+                     "kernel_ms": kernel_ms(torch, fn, 20, "search_kernel")}
+    del truth, lanes, s, a
     for P, max_pulses in ((2, 2), (12, 6)):
         sys_args, neq_args = system_inputs(torch, cfg, cal, n, P, max_pulses,
                                            41 + P, torch.float32,
@@ -1895,7 +2163,12 @@ def run(torch) -> int:
     for name, route in LAUNCHES_FROM.items():
         records[name]["launches"] = route_launches[route].get(name, 0)
     time_lm_launches(torch, cfg, calib, batch, records, card)
-    del default_out, out, truth
+    del default_out, out
+    t0 = time.perf_counter()
+    search_wide = check_search_wide(torch, cfg, cal, calib, truth, batch,
+                                    dev, card)
+    say("search-wide", f"phase done in {time.perf_counter() - t0:.1f} s")
+    del truth
     t0 = time.perf_counter()
     models = check_models(torch, cfg, cal, calib, batch, dev, card)
     say("models", f"phase done in {time.perf_counter() - t0:.1f} s")
@@ -1938,6 +2211,7 @@ def run(torch) -> int:
     print(json.dumps({"buckets": buckets}))
     print(json.dumps({"models": models}))
     print(json.dumps({"k3_wide": k3_wide}))
+    print(json.dumps({"search_wide": search_wide}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"probes": probes}))

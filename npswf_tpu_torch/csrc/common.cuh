@@ -121,6 +121,14 @@ __device__ __forceinline__ void copy_rows_async(T* s, const T* g, long long ld,
   }
 }
 
+// The shared memory a block of the current device may opt in to.
+inline size_t smem_optin() {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (size_t)v;
+}
+
 // Raise a kernel's dynamic shared memory limit to `bytes` when that is above
 // the default 48 KB, on the current device and at every launch (the
 // attribute is per device, and setting it is cheap); fails when the card
@@ -128,10 +136,7 @@ __device__ __forceinline__ void copy_rows_async(T* s, const T* g, long long ld,
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0, optin = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (bytes > (size_t)optin) return cudaErrorInvalidConfiguration;
+  if (bytes > smem_optin()) return cudaErrorInvalidConfiguration;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
 }

@@ -190,13 +190,6 @@ static bool plan_neq(size_t tsz, int p, int nk, size_t optin, Tile& t) {
   return p >= 1 && nk >= 0 && plan_tile(tsz, p, nk, sizes, 6, 0, optin, t);
 }
 
-static size_t smem_optin() {
-  int dev = 0, v = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (size_t)v;
-}
-
 template <typename T>
 __device__ __forceinline__ void store_span(T* __restrict__ g, const T* s,
                                            int count) {

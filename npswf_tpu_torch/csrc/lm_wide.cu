@@ -539,13 +539,6 @@ lm_wide_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
   }
 }
 
-static size_t smem_optin() {
-  int dev = 0, v = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return (size_t)v;
-}
-
 // The bins a chunk of a wide lane of P pulses over nk bins stages: all of
 // them, or as many down to kChunkFloor, where the lane stays within
 // kLaneBytes (eight lanes an SM); else kChunkFloor where the lane fits a

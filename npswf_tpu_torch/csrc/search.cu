@@ -36,10 +36,11 @@
 //     transpose before or after;
 //   - a team of kTeam = 16 threads works each lane (8 and 32 were timed
 //     too and were slower, PERF.md), and the lane's working spectra live
-//     in shared memory: three frames of size_ext + 2*kMarg (+ slack) values (ext, then sabs,
-//     then the second Gold iterate; y, then the first Gold iterate; logr
-//     and w, then pvec, then decon), 2.2 KB a lane at fp32 beside its
-//     0.9 KB of src and aux. No global scratch;
+//     in shared memory: three frames of size_ext + 2*marg (+ slack) values
+//     (ext, then sabs, then the second Gold iterate; y, then the first Gold
+//     iterate; logr and w, then pvec, then decon), 2.2 KB a lane at fp32
+//     and the default sigma = 2 beside its 0.9 KB of src and aux. No global
+//     scratch;
 //   - the phases that are independent per bin (extension, y, the Markov
 //     terms, w, sabs, pvec, each Gold iteration into the other buffer,
 //     decon and the operands) are split over the team, bin e to thread
@@ -61,10 +62,15 @@
 //     product changes no sum);
 //   - exp, log, sqrt and IEEE division, no fast intrinsics, -fmad=false:
 //     every value is bit-equal to the plain PyTorch version.
-// Each frame has kMarg-row margins: zeros for the Gold correlations,
+// Each frame has marg-row margins: zeros for the Gold correlations,
 // copies of the edge values for the Markov neighbours, so no inner loop
-// tests its bounds. The margins bound the Gold reach lh_gold - 1 and the
-// Markov window to kMarg; the wrapper refuses wider settings.
+// tests its bounds. marg is set at run time to hold the Gold reach
+// lh_gold - 1 and the Markov window: 16 rows up to 16 (the default
+// sigma = 2 and window 3 need 13 and 3), else the larger rounded up to a
+// multiple of 8. The taps travel by value up to kMaxResp; the widest
+// margin a block's shared memory holds at T bins and a shift is
+// npswf_search_max_reach, and the entry point refuses wider settings, as
+// the wrapper does before it.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -73,16 +79,17 @@ namespace cg = cooperative_groups;
 
 namespace npswf {
 
-constexpr int kMarg = 16;
-constexpr int kMaxResp = kMarg + 1;      // resp taps (lh_gold)
-constexpr int kMaxBvec = 2 * kMarg + 1;  // bvec taps (2*lh_gold - 1)
+constexpr int kMargMin = 16;             // the narrowest frame margin
+constexpr int kMaxResp = 128;            // resp taps (lh_gold)
+constexpr int kMaxBvec = 2 * kMaxResp - 1;  // bvec taps (2*lh_gold - 1)
 constexpr int kSearchBlock = 128;        // threads a block
 constexpr int kScalars = 4;              // a lane's broadcast values
 constexpr int kTeam = 16;                // threads a lane
 constexpr int kLanes = kSearchBlock / kTeam;  // lanes a block
 
+// 3,152 bytes: under the 4,096 bytes of a launch's parameters
 struct SearchParams {
-  int ssize, shift, size_ext, kfit, lh_gold, posit, aver_window, iters,
+  int ssize, shift, size_ext, marg, kfit, lh_gold, posit, aver_window, iters,
       aux_offset, select_p;
   double m0, m1, det, area, specthres;
   double resp[kMaxResp];
@@ -93,22 +100,41 @@ struct SearchParams {
 // denominators): with size_ext = 138, one round of chunks for the team.
 constexpr int kChunk = 9;
 
-// Shared memory of a block: the taps, the tile's src and aux rows, then
-// one region a lane (three frames and the broadcast scalars), its stride
-// padded so that the teams sharing a warp start on different banks. A
-// frame holds rows -kMarg .. size_ext + kMarg - 1 and kChunk rows of
-// slack that the last chunk's tap sums read and never use.
-__host__ __device__ inline int frame_rows(int size_ext) {
-  return size_ext + 2 * kMarg + kChunk;
+// The frame margin of a Gold reach L = lh_gold - 1 and a Markov window.
+inline int search_margin(int L, int aver_window) {
+  const int m = L > aver_window ? L : aver_window;
+  return m <= kMargMin ? kMargMin : (m + 7) / 8 * 8;
 }
-__host__ __device__ inline int lane_stride(int size_ext) {
-  const int base = 3 * frame_rows(size_ext) + kScalars;
+
+// Shared memory of a block: the taps (rounded up to 4 values), the tile's
+// src and aux rows, then one region a lane (three frames and the broadcast
+// scalars), its stride padded so that the teams sharing a warp start on
+// different banks. A frame holds rows -marg .. size_ext + marg - 1 and
+// kChunk rows of slack that the last chunk's tap sums read and never use.
+__host__ __device__ inline int taps_len(int lh_gold) {
+  return (3 * lh_gold - 1 + 3) / 4 * 4;
+}
+__host__ __device__ inline int frame_rows(int size_ext, int marg) {
+  return size_ext + 2 * marg + kChunk;
+}
+__host__ __device__ inline int lane_stride(int size_ext, int marg) {
+  const int base = 3 * frame_rows(size_ext, marg) + kScalars;
   return base + (kTeam - base % 32 + 32) % 32;
 }
-template <typename T>
-static size_t search_smem_bytes(int ssize, int size_ext) {
-  return sizeof(T) * ((size_t)kMaxResp + kMaxBvec + 2 * kLanes * ssize +
-                      (size_t)kLanes * lane_stride(size_ext));
+static size_t search_smem_bytes(size_t tsize, int ssize, int size_ext,
+                                int marg, int lh_gold) {
+  return tsize * ((size_t)taps_len(lh_gold) + 2 * kLanes * ssize +
+                  (size_t)kLanes * lane_stride(size_ext, marg));
+}
+
+// Whether a block of frames with this margin fits the card's shared
+// memory at ssize bins and this shift, with as many taps as the margin
+// allows (the widest margin that fits is the search's reach).
+static bool frame_fits(size_t tsize, int ssize, int shift, int marg) {
+  const int lh = marg + 1 < kMaxResp ? marg + 1 : kMaxResp;
+  const size_t bytes =
+      search_smem_bytes(tsize, ssize, ssize + 2 * shift, marg, lh);
+  return bytes <= 48 * 1024 || bytes <= smem_optin();
 }
 
 template <typename T, typename Team>
@@ -151,10 +177,11 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
   const int ssize = p.ssize, shift = p.shift, size_ext = p.size_ext;
   const int xmax = size_ext - 1;
   const int L = p.lh_gold - 1;
-  const int R = frame_rows(size_ext);
-  T* s_resp = reinterpret_cast<T*>(smem_raw);        // [kMaxResp]
-  T* s_bvec = s_resp + kMaxResp;                     // [kMaxBvec]
-  T* s_src = s_bvec + kMaxBvec;                      // [kLanes, T]
+  const int marg = p.marg;
+  const int R = frame_rows(size_ext, marg);
+  T* s_resp = reinterpret_cast<T*>(smem_raw);        // [lh_gold]
+  T* s_bvec = s_resp + p.lh_gold;                    // [2 * lh_gold - 1]
+  T* s_src = s_resp + taps_len(p.lh_gold);           // [kLanes, T]
   T* s_aux = s_src + kLanes * ssize;                 // [kLanes, T]
   T* s_lane = s_aux + kLanes * ssize;                // [kLanes, stride]
 
@@ -173,14 +200,15 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
   const int lane = lane0 + k;
   const T* s = s_src + k * ssize;
   const T* ax = s_aux + k * ssize;
-  // frame row e of a buffer, -kMarg <= e < size_ext + kMarg + C
+  // frame row e of a buffer, -marg <= e < size_ext + marg + C
+  const int stride = lane_stride(size_ext, marg);
   auto frame = [&](int kk, int b) {
-    return s_lane + (size_t)kk * lane_stride(size_ext) + kMarg + b * R;
+    return s_lane + (size_t)kk * stride + marg + b * R;
   };
   T* const b0 = frame(k, 0);
   T* const b1 = frame(k, 1);
   T* const b2 = frame(k, 2);
-  T* const sc = b2 + R - kMarg;  // [kScalars]
+  T* const sc = b2 + R - marg;  // [kScalars]
 
   T maxch = T(0), plocha = T(0);
   if (live) {
@@ -214,7 +242,7 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
     const T safe = maxch > T(0) ? maxch : T(1);
     for (int e = tr; e < size_ext; e += kTeam) b0[e] = b2[e] / safe;  // y
     const T y0 = ext(0) / safe, yx = ext(xmax) / safe;
-    for (int m = 1 + tr; m <= kMarg; m += kTeam) {
+    for (int m = 1 + tr; m <= marg; m += kTeam) {
       b0[-m] = y0;        // y[max(i-l+1, 0)]
       b0[xmax + m] = yx;  // y[min(i+l, xmax)]
     }
@@ -266,7 +294,7 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
     const T* const w = frame(threadIdx.x, 1);
     T sumw = T(0);
     for (int e = 0; e < size_ext; ++e) sumw = sumw + w[e];
-    frame(threadIdx.x, 2)[R - kMarg] = sumw;  // the lane's sc[0]
+    frame(threadIdx.x, 2)[R - marg] = sumw;  // the lane's sc[0]
   }
   __syncthreads();
   if (!live) return;  // no block sync follows
@@ -276,7 +304,7 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
       b2[e] = fabs(b1[e] / sumw * plocha);  // sabs
       b0[e] = T(1);                         // the first Gold iterate
     }
-    for (int m = 1 + tr; m <= kMarg; m += kTeam) {
+    for (int m = 1 + tr; m <= marg; m += kTeam) {
       b0[-m] = T(0);
       b0[xmax + m] = T(0);
       b2[-m] = T(0);
@@ -476,7 +504,8 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
 template <typename T>
 static cudaError_t launch(const void* src, const void* aux, void* const* out,
                           const SearchParams& p, int n, cudaStream_t st) {
-  const size_t smem = search_smem_bytes<T>(p.ssize, p.size_ext);
+  const size_t smem =
+      search_smem_bytes(sizeof(T), p.ssize, p.size_ext, p.marg, p.lh_gold);
   const cudaError_t e = allow_smem(search_kernel<T>, smem);
   if (e != cudaSuccess) return e;
   const int grid = (n + kLanes - 1) / kLanes;
@@ -487,6 +516,19 @@ static cudaError_t launch(const void* src, const void* aux, void* const* out,
 }
 
 }  // namespace npswf
+
+// The search's reach at ssize bins and this shift: the widest frame
+// margin a block's shared memory holds (a multiple of 8, at least 16), 0
+// when not even the narrowest fits. Any lh_gold - 1 up to it (and to
+// kMaxResp - 1) and any Markov window up to it are taken.
+extern "C" int npswf_search_max_reach(int dtype, int ssize, int shift) {
+  const size_t tsize = dtype == npswf::kFloat32 ? sizeof(float) : sizeof(double);
+  if (ssize < 1 || shift < 0) return 0;
+  int m = 0;
+  for (int c = npswf::kMargMin; npswf::frame_fits(tsize, ssize, shift, c); c += 8)
+    m = c;
+  return m;
+}
 
 // select_p = 0: the four operands, each [N, T]; select_p = P > 0: the
 // first P slots of their stable sort on negkey, each [N, P]. resp
@@ -499,13 +541,18 @@ extern "C" int npswf_search(
     int aux_offset, int select_p, double m0, double m1, double det,
     double area, double specthres, const double* resp, const double* bvec,
     void* stream) {
+  const size_t tsize = dtype == npswf::kFloat32 ? sizeof(float) : sizeof(double);
   if (lh_gold < 1 || lh_gold > npswf::kMaxResp || aver_window < 1 ||
-      aver_window > npswf::kMarg || ssize < 1 || n < 1)
+      ssize < 1 || shift < 0 || n < 1)
+    return (int)cudaErrorInvalidValue;
+  const int marg = npswf::search_margin(lh_gold - 1, aver_window);
+  if (!npswf::frame_fits(tsize, ssize, shift, marg))
     return (int)cudaErrorInvalidValue;
   npswf::SearchParams p;
   p.ssize = ssize;
   p.shift = shift;
   p.size_ext = ssize + 2 * shift;
+  p.marg = marg;
   p.kfit = kfit;
   p.lh_gold = lh_gold;
   p.posit = posit;

@@ -72,6 +72,7 @@ _P, _I, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "npswf_matched_filter": [_I] + [_P] * 5 + [_I] * 6 + [_P],
     "npswf_search": [_I] + [_P] * 6 + [_I] * 10 + [_D] * 5 + [_P] * 3,
+    "npswf_search_max_reach": [_I, _I, _I],
     "npswf_lm_max_pulses": [_I, _I],
     "npswf_lm_solve": [_I, _I, _P, _P] + [_I] * 4 + [_D] * 11 + [_P],
     "npswf_fused_eval": [_I] + [_P] * 9 + [_I] * 4 + [_D] * 2 + [_P],

@@ -158,12 +158,16 @@ def _operands(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
     sm = torch.zeros_like(nip)
     xmax = size_ext - 1
     for l in range(1, cfg.spec_aver_window + 1):
-        # neighbours y[min(i+l, xmax)] and y[max(i-l+1, 0)]
-        a_f = torch.cat([y[:, l:xmax], y[:, xmax:xmax + 1].expand(N, l)], dim=1)
+        # neighbours y[min(i+l, xmax)] and y[max(i-l+1, 0)], for windows
+        # past the frame too (TSpectrum clamps; the JAX package's slices
+        # stop at l = xmax)
+        kf, kb = min(l, xmax), min(l - 1, xmax)
+        a_f = torch.cat([y[:, kf:xmax], y[:, xmax:xmax + 1].expand(N, kf)],
+                        dim=1)
         s_f = a_f + nip
         sp = sp + torch.exp((a_f - nip) / torch.where(s_f <= 0.0, 1.0,
                                                       torch.sqrt(s_f)))
-        a_b = torch.cat([y[:, :1].expand(N, l - 1), y[:, :xmax - l + 1]], dim=1)
+        a_b = torch.cat([y[:, :1].expand(N, kb), y[:, :xmax - kb]], dim=1)
         s_b = a_b + nim
         sm = sm + torch.exp((a_b - nim) / torch.where(s_b <= 0.0, 1.0,
                                                       torch.sqrt(s_b)))

@@ -8,6 +8,9 @@ CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
+import functools
+from typing import Tuple
+
 import numpy as np
 import torch
 
@@ -16,8 +19,32 @@ from npswf_tpu_torch import kernels
 from npswf_tpu_torch.ops.peak_search import (extension_fit, search_geometry,
                                              search_operands, search_topk)
 
-# the kernel frame's margin rows (kMarg in csrc/search.cu)
-MARGIN = 16
+# the most response taps (lh_gold) the kernel takes (kMaxResp in
+# csrc/search.cu: they travel by value in the launch's parameters)
+MAX_TAPS = 128
+
+
+def search_max_reach(cfg: NPSConfig, T: int, dtype: torch.dtype,
+                     device=None) -> Tuple[int, int]:
+    """(largest lh_gold - 1, largest spec_aver_window) K2 and K4 take over
+    T bins at ``cfg.spec_sigma``'s shift and ``dtype`` on ``device``
+    (default the current card): a lane's frames, whose margins hold the
+    Gold reach and the Markov window, must fit one block's shared memory
+    with seven other lanes (csrc/search.cu). At T = 110 and sigma = 2 on
+    an NVIDIA H100 80GB HBM3: 127 (the tap cap, MAX_TAPS - 1) and a
+    window of 1,088 bins in fp32, 480 in fp64. Asked of the card once a
+    (card, dtype, T, shift)."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    margin = _max_margin(index, dtype, int(T), search_geometry(cfg, T)[0])
+    return min(margin, MAX_TAPS - 1), margin
+
+
+@functools.lru_cache(maxsize=None)
+def _max_margin(index: int, dtype: torch.dtype, T: int, shift: int) -> int:
+    with torch.cuda.device(index):
+        return int(kernels.library().npswf_search_max_reach(
+            kernels.dtype_code(dtype), T, shift))
 
 
 def _launch(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
@@ -30,16 +57,18 @@ def _launch(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
     kernels.require(aux, "aux", (N, ssize), dt, dev)
     shift, size_ext, resp, area, lh_gold, posit, bvec = \
         search_geometry(cfg, ssize)
-    # The frame margins bound the Gold correlation reach and the Markov
-    # window: wider settings would read past a lane's frame, so refuse them.
-    if lh_gold - 1 > MARGIN or cfg.spec_aver_window > MARGIN:
-        raise ValueError(
-            f"search kernel supports lh_gold-1 <= {MARGIN} and "
-            f"spec_aver_window <= {MARGIN}; got lh_gold-1 = {lh_gold - 1} "
-            f"(spec_sigma={cfg.spec_sigma}) and spec_aver_window = "
-            f"{cfg.spec_aver_window}")
     if ssize < 1 or cfg.spec_aver_window < 1:
         raise ValueError("search kernel needs T >= 1 and spec_aver_window >= 1")
+    # A lane's frame margins hold the Gold correlation reach and the Markov
+    # window; beyond what a block's shared memory holds, refuse.
+    max_lag, max_window = search_max_reach(cfg, ssize, dt, dev)
+    if lh_gold - 1 > max_lag or cfg.spec_aver_window > max_window:
+        raise ValueError(
+            f"search kernel at T = {ssize}, shift = {shift}, {dt} takes "
+            f"lh_gold-1 <= {max_lag} and spec_aver_window <= {max_window} "
+            f"(search_max_reach); got lh_gold-1 = {lh_gold - 1} "
+            f"(spec_sigma={cfg.spec_sigma}) and spec_aver_window = "
+            f"{cfg.spec_aver_window}")
     rows = select_p if select_p else ssize
     outs = [torch.empty((N, rows), dtype=dt, device=dev) for _ in range(4)]
     if N == 0:

@@ -450,10 +450,53 @@ def test_search_kernel_bit_equal_to_plain(card, dtype, mode, n):
     assert [n_unequal(torch, x, y) for x, y in zip(k, p)] == [0] * 4
 
 
+# (spec_sigma, spec_aver_window) past the default frame's 16-row margin
+# (tests/test_torch_search_wide.py holds them against the JAX kernel), and
+# the reach's limits (chip_smoke.reach_configs)
+SEARCH_WIDE = [(2.6, 3), (3.0, 3), (4.0, 3), (10.0, 3), (2.0, 17),
+               (2.0, 24), (3.0, 40), (2.0, 64), "lag limit", "window limit"]
+
+
 @pytest.mark.cuda
-def test_search_kernel_refuses_a_wide_frame(card):
-    """sigma = 3 needs Gold taps beyond the kernel frame's 16-row margin."""
-    from npswf_tpu_torch.ops.search_kernel import search_operands_kernel
-    src = torch.zeros((4, 110), dtype=torch.float64, device=card)
-    with pytest.raises(ValueError, match="lh_gold"):
-        search_operands_kernel(NPSConfig(spec_sigma=3.0), src, src, -1)
+@pytest.mark.parametrize("mode", ["operands", "select12"])
+@pytest.mark.parametrize("wide", SEARCH_WIDE, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_search_kernel_wide_bit_equal_to_plain(card, dtype, wide, mode):
+    """K2 and K4 at Gold reaches and Markov windows past the default
+    frame, and at the widest the card takes: all four outputs equal to the
+    plain version's on every bin or slot."""
+    from chip_smoke import reach_configs, search_pair_equal
+    from npswf_tpu_torch.ops.matched_filter import matched_filter
+    base, lanes = _mf_lanes(257, card)
+    src = matched_filter(base, *lanes).to(torch.float32).to(dtype)
+    aux = lanes[0].to(dtype)
+    if isinstance(wide, str):
+        cfg, taken = reach_configs(base, src.shape[1], dtype, card)[wide]
+        assert taken
+    else:
+        cfg = base.replace(spec_sigma=wide[0], spec_aver_window=wide[1])
+    P = 12 if mode == "select12" else 0
+    ndiff, _, p = search_pair_equal(torch, cfg, src, aux, P)
+    assert int(torch.isfinite(p[0]).sum()) > 0
+    assert ndiff == [0] * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("past", ["lag limit + 1", "window limit + 1"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_search_kernel_refuses_past_its_reach(card, dtype, past):
+    """One past the reach (search_max_reach): the Gold reach of the next
+    sigma, or one more window bin, raises before any launch, in both
+    wrappers."""
+    from chip_smoke import reach_configs
+    from npswf_tpu_torch.ops.search_kernel import (search_operands_kernel,
+                                                   search_topk_kernel)
+    src = torch.zeros((4, 110), dtype=dtype, device=card)
+    cfg, taken = reach_configs(NPSConfig(), 110, dtype, card)[past]
+    assert not taken
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match="search_max_reach"):
+        search_operands_kernel(cfg, src, src, -1)
+    with pytest.raises(ValueError, match="search_max_reach"):
+        search_topk_kernel(cfg, src, src, -1, 4)
+    assert not kernels.launches
