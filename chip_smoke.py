@@ -22,20 +22,24 @@ held to those of its batches run alone (plus the batches its dense
 fallback reran), the file's checks, the packet path against the dense path
 on the first two batches, the stage medians; then the CLI (synth, run, validate) in a
 subprocess. ``[search-wide]`` holds K2 and K4 at TSpectrum sigmas and
-Markov windows past the default frame's margin (sigma 2.6, 3, 4, 10;
-windows 17, 24, 64) and at the widest the card takes
-(``ops.search_kernel.search_max_reach``) to their plain versions on the
-dense batch's lanes, refuses one past each limit, runs the dense batch at
-sigma = 3, threshold 0.05 on the default and slice routes against the
-plain path, and reproduces the SearchHighRes fixtures through K2 and K4.
+Markov windows past the default frame's margin (sigma 2.6 to 40, windows
+17 to 487) and at and one past the widest a block of 8 lanes takes
+(``ops.search_kernel.search_layout``) to their plain versions on the
+dense batch's lanes, runs the dense batch at sigma = 3, threshold 0.05
+(fp32) and at sigma 20 and 27 with window 487 (fp64) on the default and
+slice routes against the plain path, and reproduces the SearchHighRes
+fixtures through K2 and K4.
 The ``[models]`` phase fits the dense batch with the gaussian
 and biexp families (K1 and K2, then the generic loop in plain PyTorch),
 against the plain path, timed, and a batch of true gaussian pulses against
-its truth; ``[k3-wide]`` holds K3 at 13-15 pulses (compiled widths) and at
-16, 24, 48 and the widest a block's shared memory holds (the wide unit, P
-at run time) to its plain version, times the wide unit at 16, 24, 48 and
-the fp32 limit, refuses one more, and runs a pileup batch
-whose widest bucket is 15 pulses, then 24; ``[tools]`` runs the CLI's
+its truth; ``[k3-wide]`` holds K3 at 13-15 pulses (compiled widths), at
+16, 24, 48, the widest lane a block's shared memory holds whole and past
+it (its system in a workspace: 78 and 90 in fp64, 113 and 120 in fp32;
+the wide unit, P at run time) to its plain version, times the wide unit,
+and runs a pileup batch whose widest bucket is 24, then 15, 110, 80
+(fp64) and 64 (``use_fused_system``) against it; ``[layouts]`` holds
+every kernel's layouts past a block's shared memory, reached under a cap
+(``kernels.smem_limit``), to the plain versions; ``[tools]`` runs the CLI's
 parity, extract-templates (then run with the extracted calibration),
 solver-audit and cpu-baseline in subprocesses, and the audit's fit in
 process with its launches counted. ``[mesh]`` runs the dense batch over a
@@ -45,8 +49,8 @@ then the dense segment through ``run_segment`` on a 2x2 mesh, its WF file
 against the single-device one; ``[probes]`` runs measure-link, perf-probe
 floor, e2e-bench and glue-profile through the CLI. It prints one JSON line
 of kernel records (times, launches, bounds), one each of the segment runs,
-the buckets, the model families, K3's wide widths, the wide search
-settings, the tools, the mesh and
+the buckets, the model families, K3's wide widths, the layouts, the wide
+search settings, the tools, the mesh and
 the probes, the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero. It imports no jax. Without a CUDA device, or
@@ -89,27 +93,53 @@ CLI_EVENTS = 32
 MODEL_FAMILIES = {"gaussian": (("width", 3.5),),
                   "biexp": (("tau_r", 1.8), ("tau_d", 9.0))}
 # [k3-wide]: (P, most pulses a lane) of the kernel checks ("limit": the
-# widest P a lane of the type fits, lm_max_pulses), the fp32 widths timed,
-# their lane count, the iterations a call at the limit is cut to (the plain
-# version's substitutions take M^2 launches an iteration), and the bucket
-# bounds that send 3-4 pulse lanes to width 15, then to width 24 (K3's wide
-# unit)
+# widest P whose lane fits a block's shared memory whole, lm_layout 0),
+# the widths past it by type (layout 1: the system in the workspace), the
+# fp32 widths timed, their lane count, the iterations a call at the limit
+# and past it is cut to (the plain version's substitutions take M^2
+# launches an iteration), the bucket bounds that send 3-4 pulse lanes to
+# width 24 (K3's wide unit; its run is held to the plain path), and the
+# widths the path runs at against that run: 15 (the widest compiled
+# width) in fp32 and 80 in fp64 on the default route (K3's system in the
+# workspace), 110 in fp32 (the widest process_batch takes at T = 110: the
+# search returns at most T slots, and both packages' pipelines raise past
+# it), 64 under use_fused_system (K6 one lane a block)
 WIDE_WIDTHS = ((13, 13), (14, 7), (15, 15), (16, 16), (24, 8), (48, 8),
                ("limit", 8))
-WIDE_TIMED = (16, 24, 48, "limit")
+WIDE_PAST = {"float64": (78, 90), "float32": (113, 120)}
+WIDE_TIMED = (16, 24, 48, "limit", 113, 120)
 WIDE_LANES = 4096
 WIDE_LIMIT_ITERS = 4
-WIDE_BUCKETS = dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=15,
-                    pallas_lm_max_pulses=15)
+WIDE_PAST_ITERS = 2
 WIDE_BUCKETS_24 = dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=24,
                        pallas_lm_max_pulses=24)
+WIDE_PATHS = (("default", "float32", 15), ("default", "float32", 110),
+              ("default", "float64", 80), ("fused_system", "float32", 64))
+# the generic loop's plain Cholesky takes ~M^2 launches an iteration (0.8 s
+# at M = 129): the fused_system path runs, both widths alike, cut every LM
+# budget to 4 iterations (and no stage-3 rungs)
+WIDE_PATH_BUDGETS = {"fused_system": dict(
+    lm_max_iter_stage1=4, lm_stage1_wide=4, lm_max_iter_stage2=4,
+    lm_stage2_wide=4, lm_stage3=False)}
 # [search-wide]: (spec_sigma, spec_aver_window) past the default frame's
-# 16-row margin (Gold reaches 17, 20, 26, 67; windows 17, 24, 64), held on
-# the dense batch's lanes beside the reach's two limits; the fixture
-# setting the batch runs at
+# 16-row margin (Gold reaches 17, 20, 26, 67; windows 17, 24, 64) and past
+# what the card once took (Gold reaches 130, 181, 268: taps past the 128
+# of the launch's parameters; sigma 27's widest window), held on the dense
+# batch's lanes beside the widest settings a block of 8 lanes takes and
+# one past each (in fp32 the widest sigma, ~78.6, also puts the extension
+# fit's 2 sigma bins past the 110 that exist); the settings and types the
+# dense batch runs at on the default and slice routes, against the plain
+# path at the same setting
 SEARCH_WIDE = ((2.6, 3), (3.0, 3), (4.0, 3), (10.0, 3), (2.0, 17),
-               (2.0, 24), (2.0, 64))
+               (2.0, 24), (2.0, 64), (19.5, 3), (27.0, 487), (40.0, 3))
+# the settings timed at fp32: K2 and K4 at PR 10's, K2 alone past them
+# (K4 differs from K2 there by its P rounds of selection only)
+SEARCH_TIMED_BOTH = SEARCH_WIDE[:7]
 SEARCH_WIDE_BATCH = dict(spec_sigma=3.0, specthres=0.05)
+REACH_LANES = 8640   # 8 events: the lanes the reach's edges are held on
+SEARCH_WIDE_BATCHES = ((SEARCH_WIDE_BATCH, "float32"),
+                       (dict(spec_sigma=20.0), "float64"),
+                       (dict(spec_sigma=27.0, spec_aver_window=487), "float64"))
 # [mesh]: the mesh shapes of gloo ranks sharing cuda:0 (a world of one rank
 # on NCCL runs first), and the shape of the segment run
 MESH_SHAPES = ((2, 1), (1, 2), (2, 2))
@@ -258,6 +288,7 @@ def lm_inputs(torch, cfg, cal, n, max_pulses, P, seed, dtype, dev,
     from npswf_tpu_torch.fit.lm import FitInputs, _prepare
     from npswf_tpu_torch.ops.spline import spline_eval
     rng = np.random.default_rng(seed)
+    cfg = cfg.replace(maxwfpulses=max(cfg.maxwfpulses, P))  # P columns
     T, Pmax = cfg.ntime, cfg.maxwfpulses
     blocks = rng.integers(0, cfg.nblocks, n)
     x = np.arange(T, dtype=np.float64)
@@ -662,6 +693,10 @@ def kernel_ms(torch, fn, reps, name):
 # the wide 10 and 12) and 3, K7 at those up to NARROW_P: (P, max_pulses of
 # the lanes)
 SYSTEM_WIDTHS = ((1, 1), (2, 2), (3, 3), (4, 4), (5, 5), (10, 6), (12, 6))
+# K6 past a tile of one lane (one lane a block, its sums through the
+# outputs), on WIDE_LANES lanes: A alone is 69,120 x 181^2 values at P = 90
+SYSTEM_WIDE = ((61, 8), (62, 8), (84, 8), (90, 8))
+SYSTEM_WIDE_TIMED = (62, 90)
 
 
 def system_bound(torch, name, args, out, P):
@@ -677,14 +712,17 @@ def system_bound(torch, name, args, out, P):
 
 def check_systems(torch, cfg, cal, dev, records, card):
     """K6 at P = 1-5, 10, 12 and K7 at P = 1..4 against their plain
-    versions at N = 69,120 lanes, bit-equal at both types. At P = 2 fp32
-    (and K6 at P = 12) each is timed as a wrapper call (CUDA events) and as
-    the kernel alone (the profiler's device time)."""
+    versions at N = 69,120 lanes, and K6 at SYSTEM_WIDE on WIDE_LANES
+    lanes, bit-equal at both types. At P = 2 fp32 (and K6 at P = 12 and
+    SYSTEM_WIDE_TIMED) each is timed as a wrapper call (CUDA events) and
+    as the kernel alone (the profiler's device time)."""
     from npswf_tpu_torch.fit.eval_kernel import (fused_neq, fused_neq_plain,
                                                  fused_system,
-                                                 fused_system_plain)
-    n = cal.nblocks * E_BENCH
-    for P, max_pulses in SYSTEM_WIDTHS:
+                                                 fused_system_plain,
+                                                 system_layout)
+    for P, max_pulses in SYSTEM_WIDTHS + SYSTEM_WIDE:
+        n = (WIDE_LANES if (P, max_pulses) in SYSTEM_WIDE
+             else cal.nblocks * E_BENCH)
         for dt in (torch.float64, torch.float32):
             sys_args, neq_args = system_inputs(torch, cfg, cal, n, P,
                                                max_pulses, 41 + P, dt, dev)
@@ -700,12 +738,18 @@ def check_systems(torch, cfg, cal, dev, records, card):
                 torch.cuda.synchronize()
                 ndiff = sum(n_unequal(torch, x, y_) for x, y_ in zip(k, p))
                 err = max_abs_diff(torch, zip(k, p))
-                say(tag, f"P={P} {dt}: {ndiff} values of A, g, chi2 differ "
-                         f"bitwise; max|d| {err:.3e}")
+                say(tag, f"P={P} {dt} {n} lanes: {ndiff} values of A, g, "
+                         f"chi2 differ bitwise; max|d| {err:.3e}")
+                if tag == "K6":
+                    layout = system_layout(P, cfg.nfitbins, dt)[0]
+                    say(tag, f"P={P} {dt}: layout {layout}")
+                    check(layout == (1 if P > 61 else 0),
+                          f"{name} at P={P} {dt} took layout {layout}")
                 check(all(bool(torch.isfinite(x).all()) for x in k),
                       f"{name} not finite")
                 check(ndiff == 0, f"{name} not bit-equal at P={P} {dt}")
-                if dt == torch.float32 and (P == 2 or (P == 12 and tag == "K6")):
+                if dt == torch.float32 and (P == 2 or (
+                        tag == "K6" and P in (12,) + SYSTEM_WIDE_TIMED)):
                     kname = "system_kernel" if tag == "K6" else "neq_kernel"
                     t = dict(max_abs_err=err,
                              ms=cuda_ms(torch, run_k, 20),
@@ -726,7 +770,7 @@ def check_systems(torch, cfg, cal, dev, records, card):
                             t["library_ms"] = None
                         records[name].update(t)
                     else:
-                        records[name]["p12"] = t
+                        records[name][f"p{P}"] = dict(t, lanes=n)
                 del k, p
             del sys_args, neq_args, cases
 
@@ -907,28 +951,31 @@ def run_buckets(torch, cfg, calib, batch):
     return out, rows, dict(kernels.plain_calls)
 
 
-def pileup_batch(torch, dev):
+def pileup_batch(torch, dev, dtype=None):
     """A 64-event batch of bench shape with up to 4 pulses a block and
-    pileup 0.9 (seed 13), fp32: (NPSConfig, calibration tensors, batch)."""
+    pileup 0.9 (seed 13), fp32 (or ``dtype``): (NPSConfig, calibration
+    tensors, batch)."""
     from npswf_tpu_torch.core.calibration import synthetic_calibration
     from npswf_tpu_torch.core.config import NPSConfig
     from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
     from npswf_tpu_torch.utils.synthetic import make_events
-    base = NPSConfig(compute_dtype="float32")
-    cal = synthetic_calibration(base, seed=1)
+    dt = torch.float32 if dtype is None else dtype
+    base = NPSConfig(compute_dtype=str(dt).split(".")[1])
+    cal = synthetic_calibration(base.replace(compute_dtype="float32"), seed=1)
     truth = make_events(base, cal, E_BENCH, occupancy=1.0, max_pulses=4,
                         pileup_prob=0.9, seed=13)
     corr = np.random.default_rng(11).uniform(-2, 2, E_BENCH).astype(np.float32)
     batch = batch_to_torch(truth.signal.astype(np.float32), truth.pres, corr,
-                           dev, torch.float32)
-    return base, calib_to_torch(cal.device_arrays(base), dev, torch.float32), batch
+                           dev, dt)
+    return base, calib_to_torch(cal.device_arrays(base), dev, dt), batch
 
 
 def check_bucket_run(torch, phase, tag, cfg, calib, batch, widths, kernel,
                      card):
     """One bucket configuration through run_buckets: every named width
     carries lanes and is solved by ``kernel``, no plain call, and wfnpulse,
-    gate and fit_converged equal the plain path's on the card."""
+    gate and fit_converged equal the plain path's on the card. (Summary,
+    output.)"""
     from npswf_tpu_torch.engine.pipeline import process_batch
     E, B, _ = batch.signal.shape
     t0 = time.perf_counter()
@@ -958,7 +1005,7 @@ def check_bucket_run(torch, phase, tag, cfg, calib, batch, widths, kernel,
         check(r["lanes"] == 0 or r["launches"].get(kernel, 0) > 0,
               f"[{phase}] {tag}: P={r['P']} not solved by {kernel}")
     return {"ms": ms, "failure_rate": rate, "buckets": rows,
-            "differ_from_plain": diff}
+            "differ_from_plain": diff}, out
 
 
 def check_buckets(torch, dev, card):
@@ -974,7 +1021,7 @@ def check_buckets(torch, dev, card):
             tag = f"{route} {changes or 'NPSConfig()'}"
             summary.append(dict(route=route, changes=changes, **check_bucket_run(
                 torch, "buckets", tag, cfg, calib, batch, widths, kernel,
-                card)))
+                card)[0]))
     return summary
 
 
@@ -1443,116 +1490,319 @@ def check_models(torch, cfg, cal, calib, batch, dev, card):
 
 def check_k3_wide(torch, dev, card):
     """The [k3-wide] phase: K3 at P = 13-15 (compiled widths), 16, 24, 48
-    and the limit of each type (the wide unit, P at run time) on check_lm's
-    inputs (WIDE_LANES lanes; the calls at the limit cut to
-    WIDE_LIMIT_ITERS iterations; tests/test_torch_package.py has the
-    retry-shaped calls), both types, u, chi2, conv, n_iter and lambda equal
-    to its plain version on every lane; the limit + 1 refused before any
-    launch; the wide unit timed at WIDE_TIMED in fp32; then the pileup
-    batch with its widest
-    bucket at 15 pulses (WIDE_BUCKETS), and at 24 (WIDE_BUCKETS_24),
-    through check_bucket_run."""
-    from npswf_tpu_torch import kernels
+    and the limit of each type (the wide unit, P at run time, its lane
+    whole in a block's shared memory) and past it (WIDE_PAST: its system in
+    the workspace) on check_lm's inputs (WIDE_LANES lanes; the calls at the
+    limit cut to WIDE_LIMIT_ITERS iterations, past it to WIDE_PAST_ITERS;
+    tests/test_torch_package.py has the retry-shaped calls), both types,
+    u, chi2, conv, n_iter and lambda equal to its plain version on every
+    lane; the wide unit timed at WIDE_TIMED in fp32; then the pileup batch
+    with its widest bucket at 24 (WIDE_BUCKETS_24) through
+    check_bucket_run, and the path runs of check_path_widths against
+    it."""
     from npswf_tpu_torch.core.calibration import synthetic_calibration
     from npswf_tpu_torch.core.config import NPSConfig
-    from npswf_tpu_torch.fit.lm_kernel import (lm_max_pulses, lm_solve_kernel,
+    from npswf_tpu_torch.fit.lm_kernel import (lm_layout, lm_solve_kernel,
                                                lm_solve_plain)
     base = NPSConfig(compute_dtype="float32")
     cal = synthetic_calibration(base, seed=1)
     K = base.nfitbins
-    limits = {dt: lm_max_pulses(K, dt) for dt in (torch.float64, torch.float32)}
-    say("k3-wide", f"widest K3 width at K = {K}: fp64 {limits[torch.float64]}, "
-                   f"fp32 {limits[torch.float32]} (a lane's arrays in one "
-                   f"block's shared memory; {card})")
-    equal, timed = {}, {}
-    for width, max_pulses in WIDE_WIDTHS:
-        for dt in (torch.float64, torch.float32):
-            P = limits[dt] if width == "limit" else width
-            cfg = base.replace(maxwfpulses=max(P, 15))
-            n = WIDE_LANES
-            args = list(lm_inputs(torch, cfg, cal, n, max_pulses, P,
-                                  91 + P + n, dt, dev))
-            if width == "limit":
-                args[10] = WIDE_LIMIT_ITERS
-            t0 = time.perf_counter()
-            k = lm_solve_kernel(cfg, *args)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            p = lm_solve_plain(cfg, *args)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            n_eq = lm_equal(torch, k, p)
-            its = p[3][args[9]]
-            say("k3-wide", f"P={P} {dt} {n} lanes (up to {max_pulses} "
-                           f"pulses, at most {args[10]} iterations, "
-                           f"{int(p[2].sum())} converged, n_iter "
-                           f"{int(its.min())}..{int(its.max())}): u, chi2, "
-                           f"conv, n_iter and lambda equal on {n_eq}; "
-                           f"first call {(t1 - t0) * 1e3:.1f} ms, plain "
-                           f"{(t2 - t1) * 1e3:.1f} ms ({card})")
-            check(n_eq == n, f"K3 not bit-equal at P={P} {dt} n={n}")
-            equal[f"P={P} {dt} n={n}"] = n_eq
-            if width in WIDE_TIMED and dt == torch.float32:
-                ms = cuda_ms(torch, lambda: lm_solve_kernel(cfg, *args), 3)
-                rec = timed[f"P={P} fp32"] = {
-                    "ms": ms, "lanes": n, "max_iter": int(args[10]),
-                    **lm_bound(torch, cfg, args, k)}
-                say("k3-wide", f"K3 at P={P} fp32, {n} lanes: {ms:.4f} ms a "
-                               f"call, bound {rec['bound_ms']:.4f} ms "
-                               f"({rec['bound_ms'] / ms:.1%}) ({card})")
-            del args, k, p
-    for dt, limit in limits.items():
-        P = limit + 1
-        cfg = base.replace(maxwfpulses=P)
-        args = lm_inputs(torch, cfg, cal, 2, 2, P, 5, dt, dev)
-        kernels.reset_counts()
-        try:
-            lm_solve_kernel(cfg, *args)
-            refused = False
-        except ValueError:
-            refused = True
-        check(refused and not kernels.launches, f"K3 took P={P} {dt}")
-        say("k3-wide", f"P={P} {dt} (the limit + 1) refused before any launch")
+    limits = {dt: lm_layout0_limit(K, dt) for dt in (torch.float64, torch.float32)}
+    say("k3-wide", f"widest K3 lane whole in a block at K = {K}: fp64 "
+                   f"{limits[torch.float64]}, fp32 {limits[torch.float32]} "
+                   f"(layout 0; past it the system goes to the workspace; "
+                   f"{card})")
+    cases = [(w, m, dt) for w, m in WIDE_WIDTHS
+             for dt in (torch.float64, torch.float32)]
+    cases += [(w, 8, dt) for dt in (torch.float64, torch.float32)
+              for w in WIDE_PAST[str(dt).split(".")[1]]]
+    equal, timed, layouts = {}, {}, {}
+    for width, max_pulses, dt in cases:
+        P = limits[dt] if width == "limit" else width
+        cfg = base.replace(maxwfpulses=max(P, 15))
+        n = WIDE_LANES
+        args = list(lm_inputs(torch, cfg, cal, n, max_pulses, P,
+                              91 + P + n, dt, dev))
+        if width == "limit":
+            args[10] = WIDE_LIMIT_ITERS
+        elif P > limits[dt]:
+            args[10] = WIDE_PAST_ITERS
+        layout, ws = lm_layout(P, K, dt)
+        layouts[f"P={P} {dt}"] = {"layout": layout, "workspace_values": ws}
+        t0 = time.perf_counter()
+        k = lm_solve_kernel(cfg, *args)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        p = lm_solve_plain(cfg, *args)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        n_eq = lm_equal(torch, k, p)
+        its = p[3][args[9]]
+        say("k3-wide", f"P={P} {dt} {n} lanes (layout {layout}, up to "
+                       f"{max_pulses} pulses, at most {args[10]} "
+                       f"iterations, {int(p[2].sum())} converged, n_iter "
+                       f"{int(its.min())}..{int(its.max())}): u, chi2, "
+                       f"conv, n_iter and lambda equal on {n_eq}; "
+                       f"first call {(t1 - t0) * 1e3:.1f} ms, plain "
+                       f"{(t2 - t1) * 1e3:.1f} ms ({card})")
+        check(n_eq == n, f"K3 not bit-equal at P={P} {dt} n={n}")
+        check(layout == (0 if P <= limits[dt] else 1),
+              f"K3 at P={P} {dt} took layout {layout}")
+        equal[f"P={P} {dt} n={n}"] = n_eq
+        if width in WIDE_TIMED and dt == torch.float32:
+            ms = cuda_ms(torch, lambda: lm_solve_kernel(cfg, *args), 3)
+            rec = timed[f"P={P} fp32"] = {
+                "ms": ms, "lanes": n, "max_iter": int(args[10]),
+                "layout": layout, **lm_bound(torch, cfg, args, k)}
+            say("k3-wide", f"K3 at P={P} fp32 (layout {layout}), {n} lanes, "
+                           f"at most {args[10]} iterations: {ms:.4f} ms a "
+                           f"call, plain {(t2 - t1) * 1e3:.1f} ms (one call), "
+                           f"bound {rec['bound_ms']:.4f} ms "
+                           f"({rec['bound_ms'] / ms:.1%}) ({card})")
+        del args, k, p
     pbase, calib, batch = pileup_batch(torch, dev)
-    runs = {}
-    for bounds in (WIDE_BUCKETS, WIDE_BUCKETS_24):
-        P = bounds["maxwfpulses"]
-        runs[P] = dict(changes=bounds, **check_bucket_run(
-            torch, "k3-wide", f"default {bounds}", pbase.replace(**bounds),
-            calib, batch, (2, P), "lm_solve", card))
-    return {"limits": {str(dt): v for dt, v in limits.items()},
-            "bit_equal_lanes": equal, "timed": timed,
-            "batch": runs[15], "batch_24": runs[24]}
+    summary, out24 = check_bucket_run(
+        torch, "k3-wide", f"default {WIDE_BUCKETS_24}",
+        pbase.replace(**WIDE_BUCKETS_24), calib, batch, (2, 24), "lm_solve",
+        card)
+    del calib, batch
+    t0 = time.perf_counter()
+    paths = check_path_widths(torch, dev, card, out24)
+    say("k3-wide", f"path runs done in {time.perf_counter() - t0:.1f} s")
+    return {"layout0_limits": {str(dt): v for dt, v in limits.items()},
+            "layouts": layouts, "bit_equal_lanes": equal, "timed": timed,
+            "batch_24": dict(changes=WIDE_BUCKETS_24, **summary),
+            "paths": paths}
+
+
+def check_path_widths(torch, dev, card, ref24):
+    """The pileup batch through process_batch with its widest bucket at
+    each width of WIDE_PATHS (K3 past a block's shared memory on the
+    default route, K6 one lane a block under use_fused_system), its
+    decisions (wfnpulse, gate, fit_converged, fit_n_iter) against the same
+    batch with its widest bucket at 24 on the card, same route and type,
+    on every block (bucket routing is result-neutral: pipeline.py's
+    widths hold no other lanes, tests/test_torch_pipeline_widths.py); the
+    route's kernel launched on every bucket, no plain call. ref24: the
+    fp32 default route's width-24 output, already run."""
+    from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
+    summary = {}
+    refs = {("default", "float32"): ref24}
+    for route, dname, P in WIDE_PATHS:
+        dt = getattr(torch, dname)
+        pbase, calib, batch = pileup_batch(torch, dev, dt)
+        pbase = pbase.replace(**WIDE_PATH_BUDGETS.get(route, {}))
+        kernel = BUCKET_ROUTES[route]
+        key = (route, dname)
+        if key not in refs:
+            cfg = pbase.replace(**WIDE_BUCKETS_24, **ROUTE_FLAGS[route])
+            rows, out, ms = run_width(torch, cfg, calib, batch, kernel,
+                                      f"{route} {dname} width 24")
+            refs[key] = out
+            summary[f"{route} {dname} 24"] = {"ms": ms, "buckets": rows}
+        bounds = dict(WIDE_BUCKETS_24, maxwfpulses=P, pallas_lm_max_pulses=P)
+        cfg = pbase.replace(**bounds, **ROUTE_FLAGS[route])
+        rows, out, ms = run_width(torch, cfg, calib, batch, kernel,
+                                  f"{route} {dname} width {P}")
+        check(any(r["P"] == P and r["lanes"] > 0 for r in rows),
+              f"[k3-wide] {route} {dname}: width {P} carried no lanes")
+        ref = refs[key]
+        diff = {f: int((getattr(out, f) != getattr(ref, f)).sum())
+                for f in ("wfnpulse", "gate", "fit_converged", "fit_n_iter")}
+        n_fail = int(out.n_fit_failure)
+        rate = n_fail / max(int(out.n_fit_success) + n_fail, 1)
+        say("k3-wide", f"{route} {dname} widest bucket {P}: {ms:.1f} ms, "
+                       f"failure rate {rate:.4%}; against width 24 on the "
+                       f"card, values differing {diff} of "
+                       f"{out.wfnpulse.numel()} ({card})")
+        check(not any(diff.values()), f"[k3-wide] {route} {dname} width "
+                                      f"{P} differs from width 24: {diff}")
+        summary[f"{route} {dname} {P}"] = {"ms": ms, "failure_rate": rate,
+                                           "buckets": rows,
+                                           "differ_from_24": diff}
+    return summary
+
+
+def run_width(torch, cfg, calib, batch, kernel, tag):
+    """One pileup run through run_buckets: each bucket with lanes solved by
+    ``kernel``, no plain call. (bucket rows, output, host ms)."""
+    t0 = time.perf_counter()
+    out, rows, plain = run_buckets(torch, cfg, calib, batch)
+    ms = (time.perf_counter() - t0) * 1e3
+    for r in rows:
+        say("k3-wide", f"{tag}: P={r['P']}: {r['lanes']} lanes, "
+                       f"{r['failed']} failed, launches {r['launches']}")
+        check(r["lanes"] == 0 or r["launches"].get(kernel, 0) > 0,
+              f"[k3-wide] {tag}: P={r['P']} not solved by {kernel}")
+    check(not plain, f"[k3-wide] {tag}: plain versions ran: {plain}")
+    return rows, out, ms
+
+
+# ---------------------------------------------------------------------
+# every kernel's layouts past a block's shared memory, under a cap
+# ---------------------------------------------------------------------
+# (kernel, width, layout): K3's wide lane with its system in the workspace
+# (1) or whole there (2); K6 one lane a block (1) or with its staged arrays
+# in the workspace (2); K2 ("operands") and K4 ("topk") with 5, 2 or 1
+# lanes a block, or their frames in the workspace (0). K7 (P <= 4) always
+# takes a tile of lanes.
+LAYOUTS = (("lm", 16, 1), ("lm", 24, 1), ("lm", 17, 2), ("lm", 24, 2),
+           ("system", 5, 1), ("system", 12, 1), ("system", 5, 2),
+           ("operands", 0, 5), ("operands", 0, 2), ("operands", 0, 1),
+           ("operands", 0, 0), ("topk", 12, 1), ("topk", 12, 0))
+LAYOUT_LANES = 257
+
+
+def check_layout(torch, kind, P, layout, dtype, dev, n=LAYOUT_LANES):
+    """One case of LAYOUTS: the largest cap of SMEM_CAPS under which the
+    kernel takes ``layout`` at width P, its call there on n lanes (K3:
+    retry-shaped; K6: system_inputs; K2/K4: the dense lanes) and its
+    plain version's. (cap, values differing: K3 lanes unequal, else per
+    output; the kernel's launches in the call)."""
+    from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.fit.eval_kernel import (fused_system,
+                                                 fused_system_plain,
+                                                 system_layout)
+    from npswf_tpu_torch.fit.lm_kernel import (lm_layout, lm_solve_kernel,
+                                               lm_solve_plain)
+    from npswf_tpu_torch.ops.matched_filter import matched_filter
+    from npswf_tpu_torch.ops.search_kernel import search_layout
+    from npswf_tpu_torch.utils.synthetic import make_events
+    base = NPSConfig(compute_dtype="float32", maxwfpulses=max(P, 12))
+    cal = synthetic_calibration(base, seed=1)
+    K = base.nfitbins
+    if kind == "lm":
+        report = lambda: lm_layout(P, K, dtype)[0]  # noqa: E731
+        args = list(lm_retry_inputs(torch, base, cal, n, 8, P, 3 + P, dtype,
+                                    dev))
+        args[10] = WIDE_LIMIT_ITERS  # the plain version's M^2 launches an iteration
+        run_k = lambda: lm_solve_kernel(base, *args)  # noqa: E731
+        run_p = lambda: lm_solve_plain(base, *args)  # noqa: E731
+    elif kind == "system":
+        report = lambda: system_layout(P, K, dtype)[0]  # noqa: E731
+        sys_args, _ = system_inputs(torch, base, cal, n, P, min(P, 6),
+                                    81 + n + P, dtype, dev)
+        run_k = lambda: fused_system(base, *sys_args)  # noqa: E731
+        run_p = lambda: fused_system_plain(base, *sys_args)  # noqa: E731
+    else:
+        truth = make_events(base, cal, -(-n // base.nblocks), occupancy=1.0,
+                            max_pulses=2, pileup_prob=0.25, seed=7)
+        lanes = [x[:n].contiguous()
+                 for x in mf_lanes(torch, cal, truth.signal, dev)]
+        src = matched_filter(base, *lanes).to(torch.float32).to(dtype)
+        aux = lanes[0].to(dtype)
+        report = lambda: search_layout(base, src.shape[1], dtype)[0]  # noqa: E731
+        cap = cap_for(torch, report, layout)
+        check(cap is not None, f"[layouts] no cap gives {kind} layout {layout}")
+        kernels.reset_counts()
+        with kernels.smem_limit(cap):
+            ndiff, _, p = search_pair_equal(torch, base, src, aux, P)
+        check(int(torch.isfinite(p[0]).sum()) > 0,
+              f"[layouts] {kind}: no peak accepted")
+        return cap, ndiff, sum(kernels.launches.values())
+    cap = cap_for(torch, report, layout)
+    check(cap is not None, f"[layouts] no cap gives {kind} layout {layout}")
+    kernels.reset_counts()
+    with kernels.smem_limit(cap):
+        k = run_k()
+    n_launch = sum(kernels.launches.values())
+    p = run_p()
+    torch.cuda.synchronize()
+    if kind == "lm":
+        return cap, n - lm_equal(torch, k, p), n_launch
+    return cap, [n_unequal(torch, x, y) for x, y in zip(k, p)], n_launch
+
+
+def check_layouts(torch, dev, card):
+    """The [layouts] phase: every case of LAYOUTS at both types, each
+    kernel launched in the layout and equal to its plain version on every
+    lane (check_layout)."""
+    names = {"lm": "lm_solve", "system": "fused_system",
+             "operands": "search_operands", "topk": "search_topk"}
+    summary = {}
+    for kind, P, layout in LAYOUTS:
+        for dt in (torch.float64, torch.float32):
+            cap, ndiff, n_launch = check_layout(torch, kind, P, layout, dt, dev)
+            say("layouts", f"{names[kind]} P={P} {dt} layout {layout} (shared "
+                           f"memory capped at {cap} bytes): {n_launch} "
+                           f"launch(es); values differing from the plain "
+                           f"version {ndiff} ({card})")
+            check(n_launch == 1, f"[layouts] {kind} not launched once")
+            check(not any(ndiff) if isinstance(ndiff, list) else ndiff == 0,
+                  f"[layouts] {kind} P={P} {dt} layout {layout} differs")
+            summary[f"{names[kind]} P={P} {dt} layout {layout}"] = {
+                "cap": cap, "differ": ndiff}
+    return summary
 
 
 # ---------------------------------------------------------------------
 # K2 and K4 at wide search settings
 # ---------------------------------------------------------------------
-def reach_configs(cfg, T, dtype, dev):
-    """The configurations at and one past K2/K4's reach over T bins
-    (ops.search_kernel.search_max_reach): the widest sigma whose Gold
-    reach lh_gold - 1 the kernel takes and the next one (found by
-    bisection: the reach falls and lh_gold - 1 rises with sigma), and the
-    widest window at cfg's sigma and one more. {name: (config, taken)}."""
-    from npswf_tpu_torch.ops.peak_search import search_geometry
-    from npswf_tpu_torch.ops.search_kernel import search_max_reach
+def reach_configs(cfg, T, dtype):
+    """The configurations at and one past the widest search settings a
+    block of 8 lanes takes over T bins (ops.search_kernel.search_layout):
+    the widest sigma whose frames a block of 8 lanes holds and the next
+    one (found by bisection: the frames grow with sigma), and the widest
+    window at cfg's sigma and one more. Past each, the block takes fewer
+    lanes. {name: (config, lanes a block)}."""
+    from npswf_tpu_torch.ops.search_kernel import search_layout
 
-    def taken(sigma):
-        c = cfg.replace(spec_sigma=sigma)
-        return search_geometry(c, T)[4] - 1 <= search_max_reach(
-            c, T, dtype, dev)[0]
+    def lanes(c):
+        return search_layout(c, T, dtype)[0]
+
+    def eight(sigma):
+        return lanes(cfg.replace(spec_sigma=sigma)) == 8
     lo, hi = cfg.spec_sigma, 8.0 * cfg.spec_sigma
-    while taken(hi):
+    while eight(hi):
         lo, hi = hi, 2.0 * hi
     for _ in range(60):
         mid = 0.5 * (lo + hi)
-        lo, hi = (mid, hi) if taken(mid) else (lo, mid)
-    window = search_max_reach(cfg, T, dtype, dev)[1]
-    return {"lag limit": (cfg.replace(spec_sigma=lo), True),
-            "lag limit + 1": (cfg.replace(spec_sigma=hi), False),
-            "window limit": (cfg.replace(spec_aver_window=window), True),
-            "window limit + 1": (cfg.replace(spec_aver_window=window + 1),
-                                 False)}
+        lo, hi = (mid, hi) if eight(mid) else (lo, mid)
+    w_lo, w_hi = cfg.spec_aver_window, 2 * cfg.spec_aver_window
+    while lanes(cfg.replace(spec_aver_window=w_hi)) == 8:
+        w_lo, w_hi = w_hi, 2 * w_hi
+    while w_hi - w_lo > 1:
+        mid = (w_lo + w_hi) // 2
+        if lanes(cfg.replace(spec_aver_window=mid)) == 8:
+            w_lo = mid
+        else:
+            w_hi = mid
+    out = {"lag limit": cfg.replace(spec_sigma=lo),
+           "lag limit + 1": cfg.replace(spec_sigma=hi),
+           "window limit": cfg.replace(spec_aver_window=w_lo),
+           "window limit + 1": cfg.replace(spec_aver_window=w_hi)}
+    return {name: (c, lanes(c)) for name, c in out.items()}
+
+
+# shared-memory caps (kernels.smem_limit) tried, largest first, to reach a
+# layout past a kernel's shared-memory limit at a width whose plain version
+# runs in seconds
+SMEM_CAPS = tuple(1 << k for k in range(17, 8, -1))
+
+
+def cap_for(torch, report, target):
+    """The largest cap of SMEM_CAPS under which report() (a layout
+    report: lm_layout, system_layout, search_layout) gives ``target``, or
+    None."""
+    from npswf_tpu_torch import kernels
+    for cap in SMEM_CAPS:
+        with kernels.smem_limit(cap):
+            if report() == target:
+                return cap
+    return None
+
+
+def lm_layout0_limit(K, dtype):
+    """The widest P whose K3 lane fits a block's shared memory whole
+    (fit.lm_kernel.lm_layout 0): 77 in fp64 and 112 in fp32 at K = 90 on
+    an H100."""
+    from npswf_tpu_torch.fit.lm_kernel import LM_COMPILED_PULSES, lm_layout
+    P = LM_COMPILED_PULSES + 1
+    while lm_layout(P + 1, K, dtype)[0] == 0:
+        P += 1
+    return P
 
 
 def setting(cfg, T):
@@ -1593,29 +1843,35 @@ def time_search(torch, cfg, s, a, P):
         fn = lambda: search_operands_kernel(cfg, s, a, -1)  # noqa: E731
         plain = lambda: search_operands(cfg, s, a, -1)  # noqa: E731
         out_bytes = 4 * nbytes(s)
-    return {"ms": cuda_ms(torch, fn, 10),
-            "kernel_ms": kernel_ms(torch, fn, 10, "search_kernel"),
-            "plain_ms": cuda_ms(torch, plain, 2),
+    # repetitions: 10, fewer where a call takes tens of ms (the widest
+    # windows and reaches take 30-450 ms a call)
+    first = cuda_ms(torch, fn, 1)
+    reps = int(min(10, max(2, 100.0 / max(first, 1e-3))))
+    return {"ms": cuda_ms(torch, fn, reps),
+            "kernel_ms": kernel_ms(torch, fn, reps, "search_kernel"),
+            "plain_ms": cuda_ms(torch, plain, 1 if reps < 10 else 2),
+            "reps": reps,
             **bound(nbytes(s, a) + out_bytes, ops_search(cfg, N, T, P))}
 
 
 def check_search_wide(torch, cfg, cal, calib, truth, batch, dev, card):
     """The [search-wide] phase. On the dense batch's lanes (the
     fp32-quantized filter output, the raw signal), K2 and K4 (P =
-    maxwfpulses) at SEARCH_WIDE and at the reach's limits
-    (reach_configs), fp32 and fp64, every output bit-equal to the plain
-    version's, each timed at fp32; one past each limit refused before any
-    launch. Then process_batch at SEARCH_WIDE_BATCH on the default route
-    (K1, K2, K3) and the slice route (K1, K4, K5), no plain call, and
-    wfnpulse, gate and fit_converged equal to the plain path's on every
-    block; then every SearchHighRes fixture (tests/data) through K2 and
-    K4."""
+    maxwfpulses) at SEARCH_WIDE and at and one past the widest settings a
+    block of 8 lanes takes (reach_configs, on the first REACH_LANES
+    lanes), fp32 and fp64, every output bit-equal to the plain version's,
+    with the lanes a block each takes; timed at fp32 (K2 and K4 at PR 10's
+    settings, K2 past them and one past each edge). Then process_batch at SEARCH_WIDE_BATCHES on the
+    default route (K1, K2, K3) and the slice route (K1, K4, K5), no plain
+    call, and wfnpulse, gate, fit_converged and fit_n_iter equal to the
+    plain path's at the same setting on every block; then every
+    SearchHighRes fixture (tests/data) through K2 and K4."""
     from npswf_tpu_torch import kernels
+    from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
     from npswf_tpu_torch.engine.pipeline import process_batch
     from npswf_tpu_torch.ops.matched_filter import matched_filter
     from npswf_tpu_torch.ops.peak_search import tspectrum_search
-    from npswf_tpu_torch.ops.search_kernel import (search_max_reach,
-                                                   search_operands_kernel)
+    from npswf_tpu_torch.ops.search_kernel import search_layout
     from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
     lanes = mf_lanes(torch, cal, truth.signal, dev)
     src = matched_filter(cfg, *lanes).to(torch.float32).to(torch.float64)
@@ -1623,27 +1879,32 @@ def check_search_wide(torch, cfg, cal, calib, truth, batch, dev, card):
     del lanes
     N, T = src.shape
     P = cfg.maxwfpulses
-    summary = {"reach": {}, "cases": {}, "timed": {}, "refused": []}
+    summary = {"reach": {}, "cases": {}, "timed": {}}
     for dt in (torch.float64, torch.float32):
         s, a = src.to(dt), aux.to(dt)
-        reach = reach_configs(cfg, T, dt, dev)
-        lag, window = search_max_reach(cfg, T, dt, dev)
+        reach = reach_configs(cfg, T, dt)
         summary["reach"][str(dt)] = {
-            "lag": lag, "window_at_default_sigma": window,
-            "lag_limit_sigma": reach["lag limit"][0].spec_sigma}
-        say("search-wide", f"{dt} reach at T = {T}: lh_gold-1 <= {lag}, "
-                           f"window <= {window} at sigma = {cfg.spec_sigma}; "
-                           f"the widest Gold reach at {setting(reach['lag limit'][0], T)} "
-                           f"({card})")
+            name: {"setting": setting(c, T), "lanes": n}
+            for name, (c, n) in reach.items()}
+        say("search-wide", f"{dt} at T = {T}: a block of 8 lanes takes up to "
+                           f"{setting(reach['lag limit'][0], T)} and "
+                           f"{setting(reach['window limit'][0], T)}; past "
+                           f"them {reach['lag limit + 1'][1]} and "
+                           f"{reach['window limit + 1'][1]} lanes ({card})")
         cases = [(f"sigma={sg} window={w}",
                   cfg.replace(spec_sigma=sg, spec_aver_window=w))
                  for sg, w in SEARCH_WIDE]
-        cases += [(name, c) for name, (c, ok) in reach.items() if ok]
+        cases += [(name, c) for name, (c, _) in reach.items()]
         for name, c in cases:
+            n_lanes, ws = search_layout(c, T, dt)
+            # the edges of a layout: its first REACH_LANES lanes (the
+            # plain version takes 0.7-2.4 s on all of them there)
+            rows = slice(None) if name not in reach else slice(0, REACH_LANES)
             for kname, p in (("K2", 0), ("K4", P)):
-                ndiff, k, pl = search_pair_equal(torch, c, s, a, p)
+                ndiff, k, pl = search_pair_equal(torch, c, s[rows], a[rows], p)
                 n_acc = int(torch.isfinite(pl[0]).sum())
-                say("search-wide", f"{kname} {dt} {setting(c, T)}: {n_acc} "
+                say("search-wide", f"{kname} {dt} {setting(c, T)} "
+                                   f"({n_lanes} lanes a block): {n_acc} "
                                    f"accepted; values differing bitwise "
                                    f"(negkey, cent, pos_y, aux) {ndiff}")
                 check(n_acc > 0, f"[search-wide] no peak accepted at {name}")
@@ -1651,84 +1912,81 @@ def check_search_wide(torch, cfg, cal, calib, truth, batch, dev, card):
                                        f"at {name} {dt}")
                 summary["cases"][f"{kname} {name} {dt}"] = {
                     "setting": setting(c, T), "accepted": n_acc,
+                    "lanes_a_block": n_lanes, "workspace_values": ws,
                     "max_abs_err": max_abs_diff(torch, zip(k, pl))}
                 del k, pl
-                if dt == torch.float32:
-                    rec = summary["timed"][f"{kname} {name}"] = time_search(
-                        torch, c, s, a, p)
+                pr10 = any(name == f"sigma={sg} window={w}"
+                           for sg, w in SEARCH_TIMED_BOTH)
+                edge = name in ("lag limit", "window limit")
+                if (dt == torch.float32 and not edge
+                        and (pr10 or kname == "K2")):
+                    rec = summary["timed"][f"{kname} {name}"] = dict(
+                        time_search(torch, c, s, a, p), lanes_a_block=n_lanes)
                     say("search-wide", f"{kname} fp32 {setting(c, T)}: "
                                        f"{rec['ms']:.4f} ms (kernel "
                                        f"{rec['kernel_ms']}), plain "
                                        f"{rec['plain_ms']:.4f} ms, bound "
                                        f"{rec['bound_ms']:.4f} ms "
                                        f"({rec['bound_by']}) ({card})")
-        for name, (c, ok) in reach.items():
-            if ok:
-                continue
-            kernels.reset_counts()
-            try:
-                search_operands_kernel(c, s[:8], a[:8], -1)
-                refused = False
-            except ValueError:
-                refused = True
-            check(refused and not kernels.launches,
-                  f"[search-wide] K2 took {name} ({setting(c, T)}) {dt}")
-            summary["refused"].append(f"{name} {dt}: {setting(c, T)}")
-            say("search-wide", f"{name} {dt} ({setting(c, T)}) refused "
-                               f"before any launch")
         del s, a
     del src, aux
 
-    wide = cfg.replace(**SEARCH_WIDE_BATCH)
     E, B, _ = batch.signal.shape
+    corr = np.random.default_rng(11).uniform(-2, 2, E).astype(np.float32)
     summary["batch"] = {}
-
-    def timed(rc):
-        """Host clock around one synchronized batch, in ms."""
-        t0 = time.perf_counter()
-        process_batch(rc, calib, batch)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-    for route in ("default", "slice"):
-        rc = wide.replace(**ROUTE_FLAGS[route])
-        must, zero = ROUTES[route]
-        kernels.reset_counts()
-        t0 = time.perf_counter()
-        out = process_batch(rc, calib, batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        launches, plain = dict(kernels.launches), dict(kernels.plain_calls)
-        med = float(np.median([timed(rc) for _ in range(3)]))
-        ref = process_batch(rc, calib, batch, plain=True)
-        diff = {f: int((getattr(out, f) != getattr(ref, f)).sum())
-                for f in ("wfnpulse", "gate", "fit_converged")}
-        n_fail = int(out.n_fit_failure)
-        rate = n_fail / max(int(out.n_fit_success) + n_fail, 1)
-        say("search-wide", f"{route} at {SEARCH_WIDE_BATCH}: {med:.3f} ms "
-                           f"a batch (median of 3 after a first call of "
-                           f"{ms:.1f} ms), pulses {int(out.wfnpulse.sum())}, "
-                           f"failure rate {rate:.4%} ({n_fail} fits); "
-                           f"launches {launches}; plain calls {plain}; "
-                           f"against the plain path, values differing "
-                           f"{diff} of {E * B} ({card})")
-        for name in must:
-            check(launches.get(name, 0) > 0,
-                  f"[search-wide] {route}: kernel {name} not launched")
-        for name in zero:
-            check(launches.get(name, 0) == 0,
-                  f"[search-wide] {route}: kernel {name} launched")
-        check(not plain, f"[search-wide] {route}: plain versions ran")
-        check(not any(diff.values()),
-              f"[search-wide] {route}: differs from the plain path: {diff}")
-        for f, v in out._asdict().items():
-            if v.is_floating_point():
-                check(bool(torch.isfinite(v).all()),
-                      f"[search-wide] {route}: {f} not finite")
-        summary["batch"][route] = {"ms": med, "first_ms": ms,
-                                   "failure_rate": rate,
-                                   "pulses": int(out.wfnpulse.sum()),
-                                   "launches": launches, "differ": diff}
-        del out, ref
+    for changes, dname in SEARCH_WIDE_BATCHES:
+        dt = getattr(torch, dname)
+        wide = cfg.replace(**changes)
+        if dt == torch.float32:
+            b, cb = batch, calib
+        else:
+            b = batch_to_torch(truth.signal.astype(np.float32), truth.pres,
+                               corr, dev, dt)
+            cb = calib_to_torch(cal.device_arrays(
+                cfg.replace(compute_dtype=dname)), dev, dt)
+        for route in ("default", "slice"):
+            rc = wide.replace(**ROUTE_FLAGS[route])
+            must, zero = ROUTES[route]
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            out = process_batch(rc, cb, b)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches, plain = dict(kernels.launches), dict(kernels.plain_calls)
+            ref = process_batch(rc, cb, b, plain=True)
+            diff = {f: int((getattr(out, f) != getattr(ref, f)).sum())
+                    for f in ("wfnpulse", "gate", "fit_converged",
+                              "fit_n_iter")}
+            n_fail = int(out.n_fit_failure)
+            rate = n_fail / max(int(out.n_fit_success) + n_fail, 1)
+            say("search-wide", f"{route} {dname} at {changes}: first call "
+                               f"{ms:.1f} ms, pulses {int(out.wfnpulse.sum())}, "
+                               f"failure rate {rate:.4%} ({n_fail} fits); "
+                               f"launches {launches}; plain calls {plain}; "
+                               f"against the plain path, values differing "
+                               f"{diff} of {E * B} ({card})")
+            for name in must:
+                check(launches.get(name, 0) > 0,
+                      f"[search-wide] {route}: kernel {name} not launched")
+            for name in zero:
+                check(launches.get(name, 0) == 0,
+                      f"[search-wide] {route}: kernel {name} launched")
+            check(not plain, f"[search-wide] {route}: plain versions ran")
+            check(not any(diff.values()),
+                  f"[search-wide] {route} {changes}: differs from the plain "
+                  f"path: {diff}")
+            for f, v in out._asdict().items():
+                if v.is_floating_point():
+                    check(bool(torch.isfinite(v).all()),
+                          f"[search-wide] {route}: {f} not finite")
+            med = (float(np.median([timed_batch(torch, rc, cb, b)
+                                    for _ in range(3)]))
+                   if dt == torch.float32 else None)
+            summary["batch"][f"{route} {dname} {changes}"] = {
+                "ms": med, "first_ms": ms, "failure_rate": rate,
+                "pulses": int(out.wfnpulse.sum()), "launches": launches,
+                "differ": diff}
+            del out, ref
 
     with open(os.path.join(REPO, "tests", "data",
                            "searchhighres_fixtures.json")) as f:
@@ -1758,6 +2016,15 @@ def check_search_wide(torch, cfg, cal, calib, truth, batch, dev, card):
                            f"{kname}")
     summary["fixtures"] = len(fixtures)
     return summary
+
+
+def timed_batch(torch, cfg, calib, batch):
+    """Host clock around one synchronized process_batch, in ms."""
+    from npswf_tpu_torch.engine.pipeline import process_batch
+    t0 = time.perf_counter()
+    process_batch(cfg, calib, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def host_cpu():
@@ -2179,6 +2446,9 @@ def run(torch) -> int:
     t0 = time.perf_counter()
     k3_wide = check_k3_wide(torch, dev, card)
     say("k3-wide", f"phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    layouts = check_layouts(torch, dev, card)
+    say("layouts", f"phase done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. the segment executor, the CLI and the tools ------------------
     with tempfile.TemporaryDirectory() as wf_dir:
@@ -2211,6 +2481,7 @@ def run(torch) -> int:
     print(json.dumps({"buckets": buckets}))
     print(json.dumps({"models": models}))
     print(json.dumps({"k3_wide": k3_wide}))
+    print(json.dumps({"layouts": layouts}))
     print(json.dumps({"search_wide": search_wide}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"mesh": mesh}))

@@ -54,9 +54,16 @@
 //   - A (both triangles from the one sum), g and chi2 go out in the caller's
 //     layout ([N, M, M], [N, M], [N]) through shared memory, as contiguous
 //     spans: a call is one launch, with no transpose and no unpack.
-// A width whose tile of one lane does not fit (the card's shared memory, or
-// one owner block a thread in kTileThreads) is refused
-// (npswf_system_supported); at K = 90 that is above P = 61.
+// Past what a tile of one lane holds (one owner block a thread in
+// kTileThreads, or the card's shared memory for the staged outputs; at K =
+// 90 above P = 61), the plan takes the wide layout: one lane a block of
+// kTileThreads, each thread taking its owner blocks in turn (u = tid, tid +
+// kTileThreads, ...). An owner's sums go straight to A, g and chi2 in the
+// caller's layout after each chunk and come back from there at the next, so
+// each sum still adds the bins in order from zero; nothing is staged for
+// the outputs, and chunks shrink (down to one bin) until the lane's staged
+// arrays fit. Where not even that fits, they live in a global workspace
+// the wrapper allocates, one region a lane (npswf_system_layout).
 //
 // Compiled with -fmad=false: each product and sum rounds as in the plain
 // PyTorch versions (fit/eval_kernel.py), which sum over the bins in order.
@@ -126,17 +133,36 @@ eval_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
 // columns LS (odd) values long. off: the staged arrays, in values of T from
 // the start of shared memory; o_cs the chunk's columns; o_int, in bytes, the
 // int arrays.
+// wide: 0 the tile layout, 1 one lane a block with the sums through the
+// outputs, 2 the same with the staged arrays in a global workspace of
+// ``region`` bytes a lane (smem 0).
 struct Tile {
-  int L, R, C, nb, U, kc, LS, threads;
+  int L, R, C, nb, U, kc, LS, threads, wide;
   int off[7];
   int o_cs;
-  size_t o_int, smem;
+  size_t o_int, smem, region;
 };
+
+// Offsets of L lanes' staged arrays (per_lane values a lane each, then
+// the chunk's columns) and, past them, ints ints a lane: the bytes.
+static size_t place(Tile& t, int L, const int* per_lane, int narr, int ints,
+                    size_t tsz) {
+  size_t o = 0;
+  for (int a = 0; a < narr; ++a) {
+    t.off[a] = (int)o;
+    o += (size_t)L * per_lane[a];
+  }
+  t.o_cs = (int)o;
+  o += (size_t)L * t.LS;
+  t.o_int = (o * tsz + 15) / 16 * 16;
+  return t.o_int + (size_t)L * ints * sizeof(int);
+}
 
 // The largest power of two L <= 64 whose tile needs at most kTileBudget of
 // shared memory (L = 1 up to the card's opt-in limit), with one owner block
 // a thread in at most kTileThreads threads. per_lane: the staged arrays'
 // values a lane; ints: int values a lane. The outputs' staging aliases them.
+// Past that, the wide layout (above).
 static bool plan_tile(size_t tsz, int p, int nk, const int* per_lane, int narr,
                       int ints, size_t optin, Tile& t) {
   const int M = 1 + 2 * p;
@@ -147,6 +173,8 @@ static bool plan_tile(size_t tsz, int p, int nk, const int* per_lane, int narr,
   const int nch = nk > 0 ? (nk + 31) / 32 : 1;
   t.kc = nk > 0 ? (nk + nch - 1) / nch : 1;
   t.LS = (t.kc * t.C) | 1;
+  t.wide = 0;
+  t.region = 0;
   const size_t out_vals = (size_t)M * M + M + 1;
   for (int L = 64; L >= 1; L /= 2) {
     size_t vals = 0;
@@ -157,22 +185,36 @@ static bool plan_tile(size_t tsz, int p, int nk, const int* per_lane, int narr,
     if (bytes < (size_t)L * out_vals * tsz) bytes = (size_t)L * out_vals * tsz;
     const int owners = (L * t.U + 31) / 32 * 32;
     const int threads = owners < 128 ? 128 : owners;
-    if ((bytes <= kTileBudget && threads <= kTileThreads) || L == 1) {
-      if (bytes > optin || threads > kTileThreads) return false;
+    const size_t budget = kTileBudget < optin ? kTileBudget : optin;
+    if ((bytes <= budget && threads <= kTileThreads) || L == 1) {
+      if (bytes > optin || threads > kTileThreads) break;
       t.L = L;
       t.threads = threads;
       t.smem = bytes;
-      t.o_int = o_int;
-      size_t o = 0;
-      for (int a = 0; a < narr; ++a) {
-        t.off[a] = (int)o;
-        o += (size_t)L * per_lane[a];
-      }
-      t.o_cs = (int)o;
+      place(t, L, per_lane, narr, ints, tsz);
       return true;
     }
   }
-  return false;
+  // the wide layout: one lane, chunks down to one bin within the card's
+  // shared memory, else the whole chunk in a global workspace
+  t.L = 1;
+  const int owners = (t.U + 31) / 32 * 32;
+  t.threads = owners < 128 ? 128 : owners > kTileThreads ? kTileThreads : owners;
+  t.wide = 1;
+  for (int kc = t.kc; kc >= 1; --kc) {
+    t.LS = (kc * t.C) | 1;
+    const size_t bytes = place(t, 1, per_lane, narr, ints, tsz);
+    if (bytes <= optin) {
+      t.kc = kc;
+      t.smem = bytes;
+      return true;
+    }
+  }
+  t.wide = 2;
+  t.LS = (t.kc * t.C) | 1;
+  t.region = (place(t, 1, per_lane, narr, ints, tsz) + 15) / 16 * 16;
+  t.smem = 0;
+  return true;
 }
 
 // K6 stages a lane's planes [4, SEG], y [K], w [K], the physical parameters
@@ -183,11 +225,13 @@ static bool plan_system(size_t tsz, int p, int nk, size_t optin, Tile& t) {
   return p >= 1 && nk >= 0 && plan_tile(tsz, p, nk, sizes, 7, p, optin, t);
 }
 
-// K7 stages a lane's y, w, f [K], Jt, Ja [P, K] and dp/du [M].
+// K7 stages a lane's y, w, f [K], Jt, Ja [P, K] and dp/du [M]; at its P <=
+// NARROW_P a tile of lanes always fits, so it takes no wide layout.
 static bool plan_neq(size_t tsz, int p, int nk, size_t optin, Tile& t) {
   const int M = 1 + 2 * p;
   const int sizes[6] = {nk, nk, nk, p * nk, p * nk, M};
-  return p >= 1 && nk >= 0 && plan_tile(tsz, p, nk, sizes, 6, 0, optin, t);
+  return p >= 1 && nk >= 0 && plan_tile(tsz, p, nk, sizes, 6, 0, optin, t) &&
+         t.wide == 0;
 }
 
 template <typename T>
@@ -198,8 +242,8 @@ __device__ __forceinline__ void store_span(T* __restrict__ g, const T* s,
 
 // The sums one thread owns: entries (i0 + a, j0 + b), a, b < R, of the
 // upper triangle of the Gram matrix of tile lane ``lane``'s bin rows.
-// Owner block u of a lane goes to thread lane + u L. Columns past C - 1 read
-// column C - 1 and are not stored.
+// Owner block u of a lane goes to thread lane + u L (the wide layout: u
+// given). Columns past C - 1 read column C - 1 and are not stored.
 template <typename T, int R>
 struct Owner {
   T acc[R][R];
@@ -208,8 +252,17 @@ struct Owner {
 
   __device__ Owner(const Tile& t, int lanes) {
     lane = threadIdx.x % t.L;
-    int u = threadIdx.x / t.L, bi = 0;
+    int u = threadIdx.x / t.L;
     on = u < t.U && lane < lanes;
+    place(t, u);
+  }
+
+  __device__ Owner(const Tile& t, int lane_, int u) : lane(lane_), on(true) {
+    place(t, u);
+  }
+
+  __device__ __forceinline__ void place(const Tile& t, int u) {
+    int bi = 0;
     if (on)
       while (u >= t.nb - bi) {
         u -= t.nb - bi;
@@ -249,8 +302,8 @@ struct Owner {
   }
 
   // Entry (i, j), i <= j <= M: A(i, j) and A(j, i) for j < M, g(i) for
-  // j = M, chi2 for i = j = M, into the staging As [L, M, M], gs [L, M],
-  // c2 [L].
+  // j = M, chi2 for i = j = M, into As [L, M, M], gs [L, M], c2 [L] (the
+  // staging, or the outputs themselves).
   __device__ __forceinline__ void put(T* As, T* gs, T* c2, int M) const {
     if (!on) return;
     T* Al = As + (size_t)lane * M * M;
@@ -270,6 +323,20 @@ struct Owner {
         }
       }
   }
+
+  // The sums put() stored, back into acc (the wide layout's next chunk).
+  __device__ __forceinline__ void get(const T* As, const T* gs, const T* c2,
+                                      int M) {
+    const T* Al = As + (size_t)lane * M * M;
+#pragma unroll
+    for (int a = 0; a < R; ++a)
+#pragma unroll
+      for (int b = 0; b < R; ++b) {
+        const int i = i0 + a, j = j0 + b;
+        if (i > j || j > M) continue;
+        acc[a][b] = j < M ? Al[i * M + j] : i < M ? gs[lane * M + i] : c2[lane];
+      }
+  }
 };
 
 // Phases (a) and (b) of K6 and K7, and their outputs. build(lane, k, row)
@@ -277,14 +344,33 @@ struct Owner {
 // ``lane`` to row[0..M]. Each owner adds its sums over the bins in order
 // from zero, chunk after chunk. Then the sums go through shared memory
 // (the staged arrays are dead by then) to A [N, M, M], g [N, M] and
-// chi2 [N] as contiguous spans.
-template <typename T, int R, typename Build>
-__device__ __forceinline__ void gram_reduce(const Tile& t, unsigned char* smem,
-                                            int lanes, int M, int nk,
-                                            long long lane0, Build build,
-                                            T* A, T* g, T* chi2) {
-  T* s = reinterpret_cast<T*>(smem);
+// chi2 [N] as contiguous spans. The wide layout (one lane) has each thread
+// take its owner blocks in turn, their sums through A, g and chi2 between
+// chunks.
+template <typename T, int R, bool Wide, typename Build>
+__device__ __forceinline__ void gram_reduce(const Tile& t, T* s, int lanes,
+                                            int M, int nk, long long lane0,
+                                            Build build, T* A, T* g, T* chi2) {
   T* cs = s + t.o_cs;
+  if constexpr (Wide) {
+    T* Al = A + lane0 * M * M;
+    T* gl = g + lane0 * M;
+    T* cl = chi2 + lane0;
+    for (int k0 = 0; k0 < nk; k0 += t.kc) {
+      const int kc = min(t.kc, nk - k0);
+      for (int kk = threadIdx.x; kk < kc; kk += blockDim.x)
+        build(0, k0 + kk, cs + kk * t.C);
+      __syncthreads();
+      for (int u = threadIdx.x; u < t.U; u += blockDim.x) {
+        Owner<T, R> own(t, 0, u);
+        if (k0 > 0) own.get(Al, gl, cl, M);
+        own.add(cs, t, kc);
+        own.put(Al, gl, cl, M);
+      }
+      __syncthreads();
+    }
+    return;
+  }
   Owner<T, R> own(t, lanes);
   for (int k0 = 0; k0 < nk; k0 += t.kc) {
     const int kc = min(t.kc, nk - k0);
@@ -306,31 +392,66 @@ __device__ __forceinline__ void gram_reduce(const Tile& t, unsigned char* smem,
   store_span(chi2 + lane0, c2, lanes);
 }
 
+// The block's staged arrays: shared memory, or its lane's region of the
+// global workspace (wide layout 2), where the copies are plain loads.
+template <bool Wide>
+__device__ __forceinline__ unsigned char* tile_region(unsigned char* smem,
+                                                      unsigned char* ws,
+                                                      const Tile& t) {
+  if (Wide && t.wide == 2) return ws + (size_t)blockIdx.x * t.region;
+  return smem;
+}
+
+template <bool Wide, typename T>
+__device__ __forceinline__ void stage_span(const Tile& t, T* s, const T* g,
+                                           int count) {
+  if (Wide && t.wide == 2) {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) s[i] = g[i];
+  } else {
+    copy_span_async(s, g, count);
+  }
+}
+
+template <bool Wide, typename T>
+__device__ __forceinline__ void stage_rows(const Tile& t, T* s, const T* g,
+                                           long long ld, int rows, int k) {
+  if (Wide && t.wide == 2) {
+    for (int i = threadIdx.x; i < rows * k; i += blockDim.x) {
+      const int r = i / k;
+      s[i] = g[r * ld + (i - r * k)];
+    }
+  } else {
+    copy_rows_async(s, g, ld, rows, k);
+  }
+}
+
 // ---- K6 -------------------------------------------------------------
-template <typename T, int R>
+template <typename T, int R, bool Wide>
 __global__ void __launch_bounds__(kTileThreads)
 system_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
               const T* __restrict__ y, const T* __restrict__ w,
               const T* __restrict__ u, const T* __restrict__ lo,
               const T* __restrict__ hi, const T* __restrict__ pseed,
               const uint8_t* __restrict__ pmask, T* __restrict__ A,
-              T* __restrict__ g, T* __restrict__ chi2, SysParams prm, Tile t) {
+              T* __restrict__ g, T* __restrict__ chi2,
+              unsigned char* __restrict__ ws, SysParams prm, Tile t) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* s = reinterpret_cast<T*>(smem);
+  unsigned char* region = tile_region<Wide>(smem, ws, t);
+  T* s = reinterpret_cast<T*>(region);
   const int P = prm.p, M = 1 + 2 * P, K = prm.nk;
   const long long lane0 = (long long)blockIdx.x * t.L;
   const int lanes = (int)min((long long)t.L, (long long)prm.n - lane0);
   T* planes = s + t.off[0];  // [L, 4, SEG]
   T* ys = s + t.off[1];      // [L, K]
-  T* ws = s + t.off[2];      // [L, K]
+  T* ws_ = s + t.off[2];     // [L, K]
   T* pp = s + t.off[3];      // [L, M] physical parameters
   T* dp = s + t.off[4];      // [L, M] dp/du
   T* uu = s + t.off[5];      // [L, P] spline fractions
   T* actp = s + t.off[6];    // [L, P] pulse masks
-  int* base = reinterpret_cast<int*>(smem + t.o_int);  // [L, P] slots of bin 0
-  copy_span_async(planes, coeffs + lane0 * 4 * kSeg, lanes * 4 * kSeg);
-  copy_rows_async(ys, y + lane0 * prm.ld[0], prm.ld[0], lanes, K);
-  copy_rows_async(ws, w + lane0 * prm.ld[1], prm.ld[1], lanes, K);
+  int* base = reinterpret_cast<int*>(region + t.o_int);  // [L, P] slots of bin 0
+  stage_span<Wide>(t, planes, coeffs + lane0 * 4 * kSeg, lanes * 4 * kSeg);
+  stage_rows<Wide>(t, ys, y + lane0 * prm.ld[0], prm.ld[0], lanes, K);
+  stage_rows<Wide>(t, ws_, w + lane0 * prm.ld[1], prm.ld[1], lanes, K);
   // while the copies fly: the transform, component i of the tile's rows
   // [lanes, M]; a time component also gives its pulse's fraction, slot and
   // mask
@@ -351,16 +472,17 @@ system_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
   cp_async_wait_all();
   __syncthreads();
   const T gate_lo = T(prm.gate_lo), gate_hi = T(prm.gate_hi);
-  gram_reduce<T, R>(t, smem, lanes, M, K, lane0,
-                    [&](int lane, int k, T* row) {
-                      const int b = lane * P;
-                      bin_columns<T, 0>(k, prm.fit_lo, gate_lo, gate_hi,
-                                        ws[lane * K + k], ys[lane * K + k],
-                                        planes + lane * 4 * kSeg, pp + lane * M,
-                                        dp + lane * M, uu + b, base + b,
-                                        actp + b, row, row[M], P);
-                    },
-                    A, g, chi2);
+  gram_reduce<T, R, Wide>(t, s, lanes, M, K, lane0,
+                          [&](int lane, int k, T* row) {
+                            const int b = lane * P;
+                            bin_columns<T, 0>(k, prm.fit_lo, gate_lo, gate_hi,
+                                              ws_[lane * K + k], ys[lane * K + k],
+                                              planes + lane * 4 * kSeg,
+                                              pp + lane * M, dp + lane * M,
+                                              uu + b, base + b, actp + b, row,
+                                              row[M], P);
+                          },
+                          A, g, chi2);
 }
 
 // ---- K7 -------------------------------------------------------------
@@ -391,20 +513,20 @@ neq_kernel(const T* __restrict__ y, const T* __restrict__ w,
   cp_async_wait_all();
   __syncthreads();
   // the plain version's columns: dp_0 w, (jt_q dp) w, (ja_q dp) w; r = (y - f) w
-  gram_reduce<T, R>(t, smem, lanes, M, K, lane0,
-                    [&](int lane, int k, T* row) {
-                      const T* d = dps + lane * M;
-                      const T* jl = jts + (size_t)lane * P * K + k;
-                      const T* al = jas + (size_t)lane * P * K + k;
-                      const T wk = ws[lane * K + k];
-                      row[0] = d[0] * wk;
-                      for (int q = 0; q < P; ++q) {
-                        row[1 + 2 * q] = jl[q * K] * d[1 + 2 * q] * wk;
-                        row[2 + 2 * q] = al[q * K] * d[2 + 2 * q] * wk;
-                      }
-                      row[M] = (ys[lane * K + k] - fs[lane * K + k]) * wk;
-                    },
-                    A, g, chi2);
+  gram_reduce<T, R, false>(t, s, lanes, M, K, lane0,
+                           [&](int lane, int k, T* row) {
+                             const T* d = dps + lane * M;
+                             const T* jl = jts + (size_t)lane * P * K + k;
+                             const T* al = jas + (size_t)lane * P * K + k;
+                             const T wk = ws[lane * K + k];
+                             row[0] = d[0] * wk;
+                             for (int q = 0; q < P; ++q) {
+                               row[1 + 2 * q] = jl[q * K] * d[1 + 2 * q] * wk;
+                               row[2 + 2 * q] = al[q * K] * d[2 + 2 * q] * wk;
+                             }
+                             row[M] = (ys[lane * K + k] - fs[lane * K + k]) * wk;
+                           },
+                           A, g, chi2);
 }
 
 // One launch of a tile kernel: a block a tile, its shared memory allowed
@@ -420,16 +542,19 @@ static cudaError_t launch_tile(Kernel kernel, const Tile& t, int n,
 
 template <typename T>
 static cudaError_t launch_system(const void* const* in, void* const* out,
-                                 const SysParams& prm, cudaStream_t st) {
+                                 void* ws, const SysParams& prm,
+                                 cudaStream_t st) {
   Tile t;
   if (!plan_system(sizeof(T), prm.p, prm.nk, smem_optin(), t))
     return cudaErrorInvalidValue;
-  auto kernel = t.R == 2 ? system_kernel<T, 2> : system_kernel<T, 4>;
+  if (t.wide == 2 && ws == nullptr) return cudaErrorInvalidValue;
+  auto kernel = t.wide ? (t.R == 2 ? system_kernel<T, 2, true> : system_kernel<T, 4, true>)
+                       : (t.R == 2 ? system_kernel<T, 2, false> : system_kernel<T, 4, false>);
   return launch_tile(kernel, t, prm.n, st, (const T*)in[0], (const T*)in[1],
                      (const T*)in[2], (const T*)in[3], (const T*)in[4],
                      (const T*)in[5], (const T*)in[6], (const T*)in[7],
                      (const uint8_t*)in[8], (T*)out[0], (T*)out[1], (T*)out[2],
-                     prm);
+                     (unsigned char*)ws, prm);
 }
 
 template <typename T>
@@ -446,11 +571,24 @@ static cudaError_t launch_neq(const void* const* in, void* const* out,
 
 }  // namespace npswf
 
-// Whether K6 takes P pulses over nk fit bins: a tile of one lane fits the
-// card's shared memory at fp64 (and so at fp32).
-extern "C" int npswf_system_supported(int p, int nk) {
+// The layout of K6 at P pulses over nk fit bins: 0 the tile, 1 one lane a
+// block with its sums through the outputs, 2 the same with its staged
+// arrays in a global workspace of *region bytes a lane (0 otherwise; the
+// wrapper allocates n times that).
+extern "C" int npswf_system_layout(int dtype, int p, int nk,
+                                   long long* region) {
+  const size_t tsz = dtype == npswf::kFloat32 ? sizeof(float) : sizeof(double);
   npswf::Tile t;
-  return npswf::plan_system(sizeof(double), p, nk, npswf::smem_optin(), t) ? 1 : 0;
+  const bool ok = npswf::plan_system(tsz, p, nk, npswf::smem_optin(), t);
+  *region = ok ? (long long)t.region : 0;
+  return ok ? t.wide : -1;
+}
+
+// Caps the shared memory a block of any kernel here may take at ``bytes``
+// (0: the card's own limit; common.cuh, g_smem_limit).
+extern "C" int npswf_set_smem_limit(long long bytes) {
+  npswf::g_smem_limit = bytes > 0 ? (size_t)bytes : 0;
+  return 0;
 }
 
 extern "C" int npswf_fused_eval(int dtype, const void* coeffs, const void* x0,
@@ -501,9 +639,10 @@ extern "C" int npswf_fused_neq(int dtype, int p, const void* const* in,
 }
 
 // in: coeffs, x0, y, w, u, lo, hi, pseed, pmask; out: A [N, M, M], g [N, M],
-// chi2 [N]; ldy, ldw: the row strides of y and w
+// chi2 [N]; ldy, ldw: the row strides of y and w; ws: n lanes of
+// npswf_system_layout's bytes, or null where that is 0
 extern "C" int npswf_fused_system(int dtype, int p, const void* const* in,
-                                  void* const* out, int n, int nk,
+                                  void* const* out, void* ws, int n, int nk,
                                   long long ldy, long long ldw, int fit_lo,
                                   double gate_lo, double gate_hi, void* stream) {
   npswf::SysParams prm{};
@@ -517,6 +656,6 @@ extern "C" int npswf_fused_system(int dtype, int p, const void* const* in,
   prm.ld[1] = ldw;
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(dtype == npswf::kFloat32
-                   ? npswf::launch_system<float>(in, out, prm, st)
-                   : npswf::launch_system<double>(in, out, prm, st));
+                   ? npswf::launch_system<float>(in, out, ws, prm, st)
+                   : npswf::launch_system<double>(in, out, ws, prm, st));
 }

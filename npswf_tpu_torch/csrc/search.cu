@@ -40,7 +40,7 @@
 //     (ext, then sabs, then the second Gold iterate; y, then the first Gold
 //     iterate; logr and w, then pvec, then decon), 2.2 KB a lane at fp32
 //     and the default sigma = 2 beside its 0.9 KB of src and aux. No global
-//     scratch;
+//     scratch wherever one lane's frames fit a block (below);
 //   - the phases that are independent per bin (extension, y, the Markov
 //     terms, w, sabs, pvec, each Gold iteration into the other buffer,
 //     decon and the operands) are split over the team, bin e to thread
@@ -67,10 +67,14 @@
 // tests its bounds. marg is set at run time to hold the Gold reach
 // lh_gold - 1 and the Markov window: 16 rows up to 16 (the default
 // sigma = 2 and window 3 need 13 and 3), else the larger rounded up to a
-// multiple of 8. The taps travel by value up to kMaxResp; the widest
-// margin a block's shared memory holds at T bins and a shift is
-// npswf_search_max_reach, and the entry point refuses wider settings, as
-// the wrapper does before it.
+// multiple of 8. The taps (resp, then bvec, in the working type) come from
+// a device buffer the wrapper fills once a setting, and the block stages
+// them beside its rows. The frames grow with the reach and the window, so
+// the lanes a block (plan_search) drop from kLanes (every default setting:
+// the layout of PR 4) one by one to 1 as they do; past what one lane's
+// frames take of a block's shared memory, a block of one lane reads its
+// taps and rows where they lie and keeps its frames in its region of a
+// global workspace the wrapper allocates. Nothing is refused.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -80,20 +84,17 @@ namespace cg = cooperative_groups;
 namespace npswf {
 
 constexpr int kMargMin = 16;             // the narrowest frame margin
-constexpr int kMaxResp = 128;            // resp taps (lh_gold)
-constexpr int kMaxBvec = 2 * kMaxResp - 1;  // bvec taps (2*lh_gold - 1)
-constexpr int kSearchBlock = 128;        // threads a block
+constexpr int kSearchBlock = 128;        // threads of a block of kLanes
 constexpr int kScalars = 4;              // a lane's broadcast values
 constexpr int kTeam = 16;                // threads a lane
-constexpr int kLanes = kSearchBlock / kTeam;  // lanes a block
+constexpr int kLanes = kSearchBlock / kTeam;  // the most lanes a block
 
-// 3,152 bytes: under the 4,096 bytes of a launch's parameters
+// lanes: lanes a block (kLanes down to 1), 0 for one lane with its frames
+// in the global workspace
 struct SearchParams {
   int ssize, shift, size_ext, marg, kfit, lh_gold, posit, aver_window, iters,
-      aux_offset, select_p;
+      aux_offset, select_p, lanes;
   double m0, m1, det, area, specthres;
-  double resp[kMaxResp];
-  double bvec[kMaxBvec];
 };
 
 // Bins a thread takes at once in the tap sums (pvec, the Gold
@@ -122,19 +123,23 @@ __host__ __device__ inline int lane_stride(int size_ext, int marg) {
   return base + (kTeam - base % 32 + 32) % 32;
 }
 static size_t search_smem_bytes(size_t tsize, int ssize, int size_ext,
-                                int marg, int lh_gold) {
-  return tsize * ((size_t)taps_len(lh_gold) + 2 * kLanes * ssize +
-                  (size_t)kLanes * lane_stride(size_ext, marg));
+                                int marg, int lh_gold, int lanes) {
+  return tsize * ((size_t)taps_len(lh_gold) + 2 * (size_t)lanes * ssize +
+                  (size_t)lanes * lane_stride(size_ext, marg));
 }
 
-// Whether a block of frames with this margin fits the card's shared
-// memory at ssize bins and this shift, with as many taps as the margin
-// allows (the widest margin that fits is the search's reach).
-static bool frame_fits(size_t tsize, int ssize, int shift, int marg) {
-  const int lh = marg + 1 < kMaxResp ? marg + 1 : kMaxResp;
-  const size_t bytes =
-      search_smem_bytes(tsize, ssize, ssize + 2 * shift, marg, lh);
-  return bytes <= 48 * 1024 || bytes <= smem_optin();
+// The lanes a block at this margin (kLanes, then as many as fit as the
+// frames grow, so that a block keeps as much of an SM's shared memory in
+// use as it can; 0 where not even one lane's fit: its frames then live in
+// the global workspace) and its shared memory.
+static int plan_search(size_t tsize, int ssize, int size_ext, int marg,
+                       int lh_gold, size_t& smem) {
+  for (int lanes = kLanes; lanes >= 1; --lanes) {
+    smem = search_smem_bytes(tsize, ssize, size_ext, marg, lh_gold, lanes);
+    if (smem <= smem_optin()) return lanes;
+  }
+  smem = 0;
+  return 0;
 }
 
 template <typename T, typename Team>
@@ -166,9 +171,13 @@ __device__ __forceinline__ void tap_sums(const T* x, const T* taps, int ntaps,
   }
 }
 
-template <typename T>
+// Global: one lane a block with its frames in the workspace; the layouts
+// of frames in shared memory are compiled apart, so that every one of their
+// addresses stays a shared-memory one
+template <typename T, bool Global>
 __global__ void __launch_bounds__(kSearchBlock)
 search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
+              const T* __restrict__ taps, T* __restrict__ frames,
               T* __restrict__ negkey, T* __restrict__ cent,
               T* __restrict__ posy, T* __restrict__ auxsel,
               const SearchParams p, int n) {
@@ -179,18 +188,33 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
   const int L = p.lh_gold - 1;
   const int marg = p.marg;
   const int R = frame_rows(size_ext, marg);
-  T* s_resp = reinterpret_cast<T*>(smem_raw);        // [lh_gold]
-  T* s_bvec = s_resp + p.lh_gold;                    // [2 * lh_gold - 1]
-  T* s_src = s_resp + taps_len(p.lh_gold);           // [kLanes, T]
-  T* s_aux = s_src + kLanes * ssize;                 // [kLanes, T]
-  T* s_lane = s_aux + kLanes * ssize;                // [kLanes, stride]
-
-  const int lane0 = blockIdx.x * kLanes;
-  const int nl = min(kLanes, n - lane0);
-  for (int j = threadIdx.x; j < p.lh_gold; j += blockDim.x) s_resp[j] = T(p.resp[j]);
-  for (int j = threadIdx.x; j <= 2 * L; j += blockDim.x) s_bvec[j] = T(p.bvec[j]);
-  load_span(src + (size_t)lane0 * ssize, nl * ssize, [&](int i, T v) { s_src[i] = v; });
-  load_span(aux + (size_t)lane0 * ssize, nl * ssize, [&](int i, T v) { s_aux[i] = v; });
+  const int stride = lane_stride(size_ext, marg);
+  const int lanes = Global ? 1 : p.lanes;
+  const int lane0 = blockIdx.x * lanes;
+  const int nl = min(lanes, n - lane0);
+  const T* s_resp;  // [lh_gold], then bvec [2 * lh_gold - 1]
+  const T* s_src;   // [lanes, T]
+  const T* s_aux;   // [lanes, T]
+  T* s_lane;        // [lanes, stride]
+  if constexpr (Global) {
+    // one lane: its taps and rows where they lie, its frames in its region
+    s_resp = taps;
+    s_src = src + (size_t)lane0 * ssize;
+    s_aux = aux + (size_t)lane0 * ssize;
+    s_lane = frames + (size_t)blockIdx.x * stride;
+  } else {
+    T* const r = reinterpret_cast<T*>(smem_raw);
+    T* const a = r + taps_len(p.lh_gold);
+    T* const b = a + lanes * ssize;
+    for (int j = threadIdx.x; j < 3 * p.lh_gold - 1; j += blockDim.x) r[j] = taps[j];
+    load_span(src + (size_t)lane0 * ssize, nl * ssize, [&](int i, T v) { a[i] = v; });
+    load_span(aux + (size_t)lane0 * ssize, nl * ssize, [&](int i, T v) { b[i] = v; });
+    s_resp = r;
+    s_src = a;
+    s_aux = b;
+    s_lane = b + lanes * ssize;
+  }
+  const T* const s_bvec = s_resp + p.lh_gold;
   __syncthreads();
 
   auto team = cg::tiled_partition<kTeam>(cg::this_thread_block());
@@ -201,7 +225,6 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
   const T* s = s_src + k * ssize;
   const T* ax = s_aux + k * ssize;
   // frame row e of a buffer, -marg <= e < size_ext + marg + C
-  const int stride = lane_stride(size_ext, marg);
   auto frame = [&](int kk, int b) {
     return s_lane + (size_t)kk * stride + marg + b * R;
   };
@@ -216,7 +239,8 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
     T l1low = T(0);
     if (p.kfit >= 2) {
       T l0 = T(0), l1 = T(0);
-      for (int i = 0; i < p.kfit; ++i) {
+      const int nfit = min(p.kfit, ssize);  // the bins that exist
+      for (int i = 0; i < nfit; ++i) {
         l0 = l0 + s[i];
         l1 = l1 + s[i] * T(i);
       }
@@ -502,57 +526,63 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
 }
 
 template <typename T>
-static cudaError_t launch(const void* src, const void* aux, void* const* out,
-                          const SearchParams& p, int n, cudaStream_t st) {
-  const size_t smem =
-      search_smem_bytes(sizeof(T), p.ssize, p.size_ext, p.marg, p.lh_gold);
-  const cudaError_t e = allow_smem(search_kernel<T>, smem);
+static cudaError_t launch(const void* src, const void* aux, const void* taps,
+                          void* frames, void* const* out, SearchParams p,
+                          int n, cudaStream_t st) {
+  size_t smem = 0;
+  p.lanes = plan_search(sizeof(T), p.ssize, p.size_ext, p.marg, p.lh_gold, smem);
+  if (p.lanes == 0 && frames == nullptr) return cudaErrorInvalidValue;
+  if (p.lanes == 0) {
+    search_kernel<T, true><<<n, kTeam, 0, st>>>(
+        (const T*)src, (const T*)aux, (const T*)taps, (T*)frames, (T*)out[0],
+        (T*)out[1], (T*)out[2], (T*)out[3], p, n);
+    return cudaGetLastError();
+  }
+  const cudaError_t e = allow_smem(search_kernel<T, false>, smem);
   if (e != cudaSuccess) return e;
-  const int grid = (n + kLanes - 1) / kLanes;
-  search_kernel<T><<<grid, kSearchBlock, smem, st>>>(
-      (const T*)src, (const T*)aux, (T*)out[0], (T*)out[1], (T*)out[2],
-      (T*)out[3], p, n);
+  search_kernel<T, false><<<(n + p.lanes - 1) / p.lanes, p.lanes * kTeam, smem,
+                            st>>>(
+      (const T*)src, (const T*)aux, (const T*)taps, (T*)frames, (T*)out[0],
+      (T*)out[1], (T*)out[2], (T*)out[3], p, n);
   return cudaGetLastError();
 }
 
 }  // namespace npswf
 
-// The search's reach at ssize bins and this shift: the widest frame
-// margin a block's shared memory holds (a multiple of 8, at least 16), 0
-// when not even the narrowest fits. Any lh_gold - 1 up to it (and to
-// kMaxResp - 1) and any Markov window up to it are taken.
-extern "C" int npswf_search_max_reach(int dtype, int ssize, int shift) {
+// The layout of a search at ssize bins, this shift, Gold reach lh_gold - 1
+// and Markov window: the lanes a block (8 at every default setting, fewer
+// as the frames grow), or 0 for one lane a block with its frames in the
+// global workspace, whose values a lane go to *ws_lane (0 otherwise; the
+// wrapper allocates n times that).
+extern "C" int npswf_search_layout(int dtype, int ssize, int shift,
+                                   int lh_gold, int aver_window,
+                                   long long* ws_lane) {
   const size_t tsize = dtype == npswf::kFloat32 ? sizeof(float) : sizeof(double);
-  if (ssize < 1 || shift < 0) return 0;
-  int m = 0;
-  for (int c = npswf::kMargMin; npswf::frame_fits(tsize, ssize, shift, c); c += 8)
-    m = c;
-  return m;
+  const int size_ext = ssize + 2 * shift;
+  const int marg = npswf::search_margin(lh_gold - 1, aver_window);
+  size_t smem = 0;
+  const int lanes = npswf::plan_search(tsize, ssize, size_ext, marg, lh_gold, smem);
+  *ws_lane = lanes == 0 ? npswf::lane_stride(size_ext, marg) : 0;
+  return lanes;
 }
 
 // select_p = 0: the four operands, each [N, T]; select_p = P > 0: the
-// first P slots of their stable sort on negkey, each [N, P]. resp
-// (lh_gold values) and bvec (2*lh_gold - 1) are host arrays, passed to the
-// kernel by value.
+// first P slots of their stable sort on negkey, each [N, P]. taps: resp
+// (lh_gold values) then bvec (2*lh_gold - 1), on the card in the working
+// type; frames: the workspace of npswf_search_layout, or null.
 extern "C" int npswf_search(
-    int dtype, const void* src, const void* aux, void* negkey,
-    void* cent, void* posy, void* auxsel, int n, int ssize, int shift,
-    int kfit, int lh_gold, int posit, int aver_window, int iters,
-    int aux_offset, int select_p, double m0, double m1, double det,
-    double area, double specthres, const double* resp, const double* bvec,
-    void* stream) {
-  const size_t tsize = dtype == npswf::kFloat32 ? sizeof(float) : sizeof(double);
-  if (lh_gold < 1 || lh_gold > npswf::kMaxResp || aver_window < 1 ||
-      ssize < 1 || shift < 0 || n < 1)
-    return (int)cudaErrorInvalidValue;
-  const int marg = npswf::search_margin(lh_gold - 1, aver_window);
-  if (!npswf::frame_fits(tsize, ssize, shift, marg))
+    int dtype, const void* src, const void* aux, const void* taps,
+    void* frames, void* negkey, void* cent, void* posy, void* auxsel, int n,
+    int ssize, int shift, int kfit, int lh_gold, int posit, int aver_window,
+    int iters, int aux_offset, int select_p, double m0, double m1, double det,
+    double area, double specthres, void* stream) {
+  if (lh_gold < 1 || aver_window < 1 || ssize < 1 || shift < 0 || n < 1)
     return (int)cudaErrorInvalidValue;
   npswf::SearchParams p;
   p.ssize = ssize;
   p.shift = shift;
   p.size_ext = ssize + 2 * shift;
-  p.marg = marg;
+  p.marg = npswf::search_margin(lh_gold - 1, aver_window);
   p.kfit = kfit;
   p.lh_gold = lh_gold;
   p.posit = posit;
@@ -565,12 +595,9 @@ extern "C" int npswf_search(
   p.det = det;
   p.area = area;
   p.specthres = specthres;
-  for (int j = 0; j < npswf::kMaxResp; ++j) p.resp[j] = j < lh_gold ? resp[j] : 0.0;
-  for (int j = 0; j < npswf::kMaxBvec; ++j)
-    p.bvec[j] = j < 2 * lh_gold - 1 ? bvec[j] : 0.0;
   void* out[4] = {negkey, cent, posy, auxsel};
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(dtype == npswf::kFloat32
-                   ? npswf::launch<float>(src, aux, out, p, n, st)
-                   : npswf::launch<double>(src, aux, out, p, n, st));
+                   ? npswf::launch<float>(src, aux, taps, frames, out, p, n, st)
+                   : npswf::launch<double>(src, aux, taps, frames, out, p, n, st));
 }

@@ -135,8 +135,12 @@ def _operands(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
     # ---- 1. extension -------------------------------------------------
     kfit, m0, m1, det = extension_fit(cfg)
     if kfit >= 2:
-        l0 = _running_sums(src[:, :kfit])[:, -1]
-        l1 = _running_sums(src[:, :kfit] * const(np.arange(kfit)))[:, -1]
+        # the fit's sums over the bins that exist (kfit passes T from sigma
+        # 54.75 on at T = 110; the JAX kernel masks, its XLA path raises),
+        # its moments over kfit
+        nfit = min(kfit, ssize)
+        l0 = _running_sums(src[:, :nfit])[:, -1]
+        l1 = _running_sums(src[:, :nfit] * const(np.arange(nfit)))[:, -1]
         # det as a device tensor: PyTorch's CUDA division by a CPU scalar
         # multiplies by its reciprocal, which rounds unlike the kernel's
         l1low = ((-l0 * m1 + l1 * m0) / const(det)) if det != 0.0 \

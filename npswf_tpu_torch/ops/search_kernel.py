@@ -8,6 +8,7 @@ CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Tuple
 
@@ -19,32 +20,38 @@ from npswf_tpu_torch import kernels
 from npswf_tpu_torch.ops.peak_search import (extension_fit, search_geometry,
                                              search_operands, search_topk)
 
-# the most response taps (lh_gold) the kernel takes (kMaxResp in
-# csrc/search.cu: they travel by value in the launch's parameters)
-MAX_TAPS = 128
 
-
-def search_max_reach(cfg: NPSConfig, T: int, dtype: torch.dtype,
-                     device=None) -> Tuple[int, int]:
-    """(largest lh_gold - 1, largest spec_aver_window) K2 and K4 take over
-    T bins at ``cfg.spec_sigma``'s shift and ``dtype`` on ``device``
-    (default the current card): a lane's frames, whose margins hold the
-    Gold reach and the Markov window, must fit one block's shared memory
-    with seven other lanes (csrc/search.cu). At T = 110 and sigma = 2 on
-    an NVIDIA H100 80GB HBM3: 127 (the tap cap, MAX_TAPS - 1) and a
-    window of 1,088 bins in fp32, 480 in fp64. Asked of the card once a
-    (card, dtype, T, shift)."""
-    dev = torch.device("cuda" if device is None else device)
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    margin = _max_margin(index, dtype, int(T), search_geometry(cfg, T)[0])
-    return min(margin, MAX_TAPS - 1), margin
+def search_layout(cfg: NPSConfig, T: int,
+                  dtype: torch.dtype) -> Tuple[int, int]:
+    """(lanes a block, workspace values a lane) of K2/K4 over T bins at
+    ``cfg``'s sigma and Markov window in ``dtype`` on the current card
+    (csrc/search.cu, plan_search): 8 lanes a block at every default
+    setting; fewer, one by one down to 1, as the frames that hold the Gold
+    reach and the window grow; 0 lanes (one a block) with its frames in a
+    global workspace of that many values a lane past what one lane's
+    frames take of a block's shared memory."""
+    shift, _, _, _, lh_gold, _, _ = search_geometry(cfg, T)
+    ws = ctypes.c_longlong(0)
+    lanes = kernels.library().npswf_search_layout(
+        kernels.dtype_code(dtype), int(T), shift, lh_gold,
+        cfg.spec_aver_window, ctypes.byref(ws))
+    return int(lanes), int(ws.value)
 
 
 @functools.lru_cache(maxsize=None)
-def _max_margin(index: int, dtype: torch.dtype, T: int, shift: int) -> int:
-    with torch.cuda.device(index):
-        return int(kernels.library().npswf_search_max_reach(
-            kernels.dtype_code(dtype), T, shift))
+def _taps(sigma: float, T: int, dtype: torch.dtype,
+          device: torch.device) -> torch.Tensor:
+    """The Gold taps on the card, resp then bvec in ``dtype`` (rounded to
+    nearest from fp64, as the plain version's constants are): copied once
+    a (setting, card, type), and kept for the process."""
+    cfg = NPSConfig(spec_sigma=sigma)
+    _, _, resp, _, _, _, bvec = search_geometry(cfg, T)
+    host = np.concatenate([np.asarray(resp, np.float64),
+                           np.asarray(bvec, np.float64)])
+    taps = torch.as_tensor(host, device=device).to(dtype)
+    # other streams (the segment executor's two workers) read it from now on
+    torch.cuda.current_stream(device).synchronize()
+    return taps
 
 
 def _launch(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
@@ -55,35 +62,26 @@ def _launch(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
     dev, dt = src.device, src.dtype
     kernels.require(src, "src", (N, ssize), dt, dev)
     kernels.require(aux, "aux", (N, ssize), dt, dev)
-    shift, size_ext, resp, area, lh_gold, posit, bvec = \
-        search_geometry(cfg, ssize)
+    shift, _, _, area, lh_gold, posit, _ = search_geometry(cfg, ssize)
     if ssize < 1 or cfg.spec_aver_window < 1:
         raise ValueError("search kernel needs T >= 1 and spec_aver_window >= 1")
-    # A lane's frame margins hold the Gold correlation reach and the Markov
-    # window; beyond what a block's shared memory holds, refuse.
-    max_lag, max_window = search_max_reach(cfg, ssize, dt, dev)
-    if lh_gold - 1 > max_lag or cfg.spec_aver_window > max_window:
-        raise ValueError(
-            f"search kernel at T = {ssize}, shift = {shift}, {dt} takes "
-            f"lh_gold-1 <= {max_lag} and spec_aver_window <= {max_window} "
-            f"(search_max_reach); got lh_gold-1 = {lh_gold - 1} "
-            f"(spec_sigma={cfg.spec_sigma}) and spec_aver_window = "
-            f"{cfg.spec_aver_window}")
     rows = select_p if select_p else ssize
     outs = [torch.empty((N, rows), dtype=dt, device=dev) for _ in range(4)]
     if N == 0:
         return tuple(outs)
-    # resp and bvec travel by value in the launch's parameters: no copy to
-    # the card, no host sync
-    resp_h = np.ascontiguousarray(resp, dtype=np.float64)
-    bvec_h = np.ascontiguousarray(bvec, dtype=np.float64)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    taps = _taps(float(cfg.spec_sigma), ssize, dt, torch.device("cuda", index))
+    _, ws_lane = search_layout(cfg, ssize, dt)
+    frames = (torch.empty((N * ws_lane,), dtype=dt, device=dev) if ws_lane
+              else None)
     kfit, m0, m1, det = extension_fit(cfg)
     code = kernels.library().npswf_search(
         kernels.dtype_code(dt), src.data_ptr(), aux.data_ptr(),
+        taps.data_ptr(), None if frames is None else frames.data_ptr(),
         *(o.data_ptr() for o in outs), N, ssize, shift, kfit, lh_gold, posit,
         cfg.spec_aver_window, cfg.spec_decon_iterations, aux_offset, select_p,
-        m0, m1, det, float(area), float(cfg.specthres), resp_h.ctypes.data,
-        bvec_h.ctypes.data, kernels.stream_ptr(dev))
+        m0, m1, det, float(area), float(cfg.specthres),
+        kernels.stream_ptr(dev))
     kernels.check(code, name)
     kernels.count_launch(name)
     return tuple(outs)

@@ -177,11 +177,12 @@ def launch(mesh: Mesh, body, *args, workdir: Optional[str] = None):
 
 
 @contextlib.contextmanager
-def world_of_one(device: str = "cpu",
+def world_of_one(device: str = "cuda:0",
                  workdir: Optional[str] = None) -> Iterator[RankMesh]:
-    """A 1 x 1 mesh in this process (gloo on the CPU, NCCL on a card): the
-    RankMesh a rank's body gets, to run the sharded code path without
-    starting a process. The process group ends with the block."""
+    """A 1 x 1 mesh in this process (NCCL on a card, the first by default;
+    gloo with ``device="cpu"``): the RankMesh a rank's body gets, to run
+    the sharded code path without starting a process. The process group
+    ends with the block."""
     mesh = Mesh(1, 1, (str(torch.device(device)),),
                 "nccl" if device.startswith("cuda") else "gloo")
     rundir = tempfile.mkdtemp(prefix="npswf_mesh_", dir=workdir)

@@ -181,7 +181,7 @@ def test_cluster_gate_single_device_only(small_cfg, small_cal, tmp_path):
     for axis in (None, "block"):
         with pytest.raises(TypeError, match="block_axis"):
             cluster_gate(*args, block_axis=axis, block_shards=2)
-    with world_of_one(workdir=str(tmp_path)) as rm:
+    with world_of_one("cpu", workdir=str(tmp_path)) as rm:
         grouped = cluster_gate(*args, block_axis=rm.block, block_shards=1)
     assert torch.equal(grouped, cluster_gate(*args))
 

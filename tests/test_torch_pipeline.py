@@ -163,7 +163,7 @@ def test_process_batch_single_device_only(small_cfg, small_cal, tmp_path):
         with pytest.raises(TypeError, match="Axis"):
             process_batch(port, calib, batch, **kw)
     ref = process_batch(port, calib, batch)
-    with world_of_one(workdir=str(tmp_path)) as rm:
+    with world_of_one("cpu", workdir=str(tmp_path)) as rm:
         out = process_batch(port, calib, batch, block_axis=rm.block,
                             reduce_axes=(rm.world,))
     for name, a, b in zip(ref._fields, out, ref):
