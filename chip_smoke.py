@@ -12,8 +12,8 @@ its two system variants (K5 + K7, and K6). Each route's launch counts are
 read from its own run, its result is checked, and it is timed against the
 plain path. The ``[buckets]`` phase runs a pileup-heavy batch under bucket
 bounds that route lanes to fit widths 1, 2, 4, 5, 10 and 12, on the
-default route (K3) and on ``use_fused_system`` (K6), each bucket's
-decisions against the plain path. Then the ``[segment]`` phase drives the production entry
+default route (K3) and on ``use_fused_system`` (K6, every LM budget cut
+to 4 iterations), each bucket's decisions against the plain path. Then the ``[segment]`` phase drives the production entry
 point, ``runtime.executor.run_segment``, from raw segments built in memory
 to WF files: 2,048 events read out sparsely (occupancy 0.03: the slab
 packet, the present-lane upload), once plain and once in chains of 4, and
@@ -32,14 +32,11 @@ fixtures through K2 and K4.
 The ``[models]`` phase fits the dense batch with the gaussian
 and biexp families (K1 and K2, then the generic loop in plain PyTorch),
 against the plain path, timed, and a batch of true gaussian pulses against
-its truth; ``[k3-wide]`` holds K3 at 13-15 pulses (compiled widths), at
-16, 24, 48, the widest lane a block's shared memory holds whole and past
-it (its system in a workspace: 78 and 90 in fp64, 113 and 120 in fp32;
-the wide unit, P at run time) to its plain version, times the wide unit,
-and runs a pileup batch whose widest bucket is 24, then 15, 110, 80
-(fp64) and 64 (``use_fused_system``) against it; ``[layouts]`` holds
-every kernel's layouts past a block's shared memory, reached under a cap
-(``kernels.smem_limit``), to the plain versions; ``[tools]`` runs the CLI's
+its truth; ``[k3-wide]`` holds K3 at 13-15 pulses (compiled widths) and at
+16, 24, 48 and the widest a block's shared memory holds (the wide unit, P
+at run time) to its plain version, times the wide unit, refuses one more,
+and runs a pileup batch whose widest bucket is 24, then 15, 110, K3's
+limit (fp64) and 64 (``use_fused_system``) against it; ``[tools]`` runs the CLI's
 parity, extract-templates (then run with the extracted calibration),
 solver-audit and cpu-baseline in subprocesses, and the audit's fit in
 process with its launches counted. ``[mesh]`` runs the dense batch over a
@@ -49,8 +46,8 @@ then the dense segment through ``run_segment`` on a 2x2 mesh, its WF file
 against the single-device one; ``[probes]`` runs measure-link, perf-probe
 floor, e2e-bench and glue-profile through the CLI. It prints one JSON line
 of kernel records (times, launches, bounds), one each of the segment runs,
-the buckets, the model families, K3's wide widths, the layouts, the wide
-search settings, the tools, the mesh and
+the buckets, the model families, K3's wide widths, the wide search
+settings, the tools, the mesh and
 the probes, the card's name and power limit, and a last JSON line
 ``{"ok": true, "device": {...}}``. Any
 failed phase exits non-zero. It imports no jax. Without a CUDA device, or
@@ -93,31 +90,28 @@ CLI_EVENTS = 32
 MODEL_FAMILIES = {"gaussian": (("width", 3.5),),
                   "biexp": (("tau_r", 1.8), ("tau_d", 9.0))}
 # [k3-wide]: (P, most pulses a lane) of the kernel checks ("limit": the
-# widest P whose lane fits a block's shared memory whole, lm_layout 0),
-# the widths past it by type (layout 1: the system in the workspace), the
-# fp32 widths timed, their lane count, the iterations a call at the limit
-# and past it is cut to (the plain version's substitutions take M^2
-# launches an iteration), the bucket bounds that send 3-4 pulse lanes to
-# width 24 (K3's wide unit; its run is held to the plain path), and the
-# widths the path runs at against that run: 15 (the widest compiled
-# width) in fp32 and 80 in fp64 on the default route (K3's system in the
-# workspace), 110 in fp32 (the widest process_batch takes at T = 110: the
-# search returns at most T slots, and both packages' pipelines raise past
-# it), 64 under use_fused_system (K6 one lane a block)
+# widest P a lane of the type fits, lm_max_pulses), the fp32 widths timed,
+# their lane count, the iterations a call at the limit is cut to (the plain
+# version's substitutions take M^2 launches an iteration), the bucket
+# bounds that send 3-4 pulse lanes to width 24 (K3's wide unit; its run is
+# held to the plain path), and the widths the path runs at against that
+# run: 15 (the widest compiled width) and 110 in fp32 (the widest
+# process_batch takes at T = 110: the search returns at most T slots, and
+# both packages' pipelines raise past it) and K3's limit in fp64 on the
+# default route, 64 under use_fused_system (K6 one lane a block)
 WIDE_WIDTHS = ((13, 13), (14, 7), (15, 15), (16, 16), (24, 8), (48, 8),
                ("limit", 8))
-WIDE_PAST = {"float64": (78, 90), "float32": (113, 120)}
-WIDE_TIMED = (16, 24, 48, "limit", 113, 120)
+WIDE_TIMED = (16, 24, 48, "limit")
 WIDE_LANES = 4096
 WIDE_LIMIT_ITERS = 4
-WIDE_PAST_ITERS = 2
 WIDE_BUCKETS_24 = dict(fit_small_pulses=2, fit_mid_pulses=2, maxwfpulses=24,
                        pallas_lm_max_pulses=24)
 WIDE_PATHS = (("default", "float32", 15), ("default", "float32", 110),
-              ("default", "float64", 80), ("fused_system", "float32", 64))
+              ("default", "float64", "limit"), ("fused_system", "float32", 64))
 # the generic loop's plain Cholesky takes ~M^2 launches an iteration (0.8 s
-# at M = 129): the fused_system path runs, both widths alike, cut every LM
-# budget to 4 iterations (and no stage-3 rungs)
+# at M = 129): the fused_system runs (its path runs, both widths alike, and
+# its [buckets] runs) cut every LM budget to 4 iterations (and no stage-3
+# rungs)
 WIDE_PATH_BUDGETS = {"fused_system": dict(
     lm_max_iter_stage1=4, lm_stage1_wide=4, lm_max_iter_stage2=4,
     lm_stage2_wide=4, lm_stage3=False)}
@@ -132,7 +126,7 @@ WIDE_PATH_BUDGETS = {"fused_system": dict(
 # path at the same setting
 SEARCH_WIDE = ((2.6, 3), (3.0, 3), (4.0, 3), (10.0, 3), (2.0, 17),
                (2.0, 24), (2.0, 64), (19.5, 3), (27.0, 487), (40.0, 3))
-# the settings timed at fp32: K2 and K4 at PR 10's, K2 alone past them
+# the settings timed at fp32: K2 and K4 at the first seven, K2 alone past them
 # (K4 differs from K2 there by its P rounds of selection only)
 SEARCH_TIMED_BOTH = SEARCH_WIDE[:7]
 SEARCH_WIDE_BATCH = dict(spec_sigma=3.0, specthres=0.05)
@@ -741,7 +735,7 @@ def check_systems(torch, cfg, cal, dev, records, card):
                 say(tag, f"P={P} {dt} {n} lanes: {ndiff} values of A, g, "
                          f"chi2 differ bitwise; max|d| {err:.3e}")
                 if tag == "K6":
-                    layout = system_layout(P, cfg.nfitbins, dt)[0]
+                    layout = system_layout(P, cfg.nfitbins, dt)
                     say(tag, f"P={P} {dt}: layout {layout}")
                     check(layout == (1 if P > 61 else 0),
                           f"{name} at P={P} {dt} took layout {layout}")
@@ -1011,13 +1005,15 @@ def check_bucket_run(torch, phase, tag, cfg, calib, batch, widths, kernel,
 def check_buckets(torch, dev, card):
     """The [buckets] phase: the pileup batch through process_batch under
     each of BUCKET_CONFIGS, on the default route (K3) and on
-    use_fused_system (K6), each through check_bucket_run."""
+    use_fused_system (K6; its LM budgets cut as WIDE_PATH_BUDGETS), each
+    through check_bucket_run."""
     from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
     base, calib, batch = pileup_batch(torch, dev)
     summary = []
     for changes, widths in BUCKET_CONFIGS:
         for route, kernel in BUCKET_ROUTES.items():
-            cfg = base.replace(**changes, **ROUTE_FLAGS[route])
+            cfg = base.replace(**changes, **ROUTE_FLAGS[route],
+                               **WIDE_PATH_BUDGETS.get(route, {}))
             tag = f"{route} {changes or 'NPSConfig()'}"
             summary.append(dict(route=route, changes=changes, **check_bucket_run(
                 torch, "buckets", tag, cfg, calib, batch, widths, kernel,
@@ -1490,76 +1486,77 @@ def check_models(torch, cfg, cal, calib, batch, dev, card):
 
 def check_k3_wide(torch, dev, card):
     """The [k3-wide] phase: K3 at P = 13-15 (compiled widths), 16, 24, 48
-    and the limit of each type (the wide unit, P at run time, its lane
-    whole in a block's shared memory) and past it (WIDE_PAST: its system in
-    the workspace) on check_lm's inputs (WIDE_LANES lanes; the calls at the
-    limit cut to WIDE_LIMIT_ITERS iterations, past it to WIDE_PAST_ITERS;
-    tests/test_torch_package.py has the retry-shaped calls), both types,
-    u, chi2, conv, n_iter and lambda equal to its plain version on every
-    lane; the wide unit timed at WIDE_TIMED in fp32; then the pileup batch
-    with its widest bucket at 24 (WIDE_BUCKETS_24) through
+    and the limit of each type (the wide unit, P at run time) on check_lm's
+    inputs (WIDE_LANES lanes; the calls at the limit cut to
+    WIDE_LIMIT_ITERS iterations; tests/test_torch_package.py has the
+    retry-shaped calls), both types, u, chi2, conv, n_iter and lambda equal
+    to its plain version on every lane; the limit + 1 refused before any
+    launch; the wide unit timed at WIDE_TIMED in fp32; then the pileup
+    batch with its widest bucket at 24 (WIDE_BUCKETS_24) through
     check_bucket_run, and the path runs of check_path_widths against
     it."""
+    from npswf_tpu_torch import kernels
     from npswf_tpu_torch.core.calibration import synthetic_calibration
     from npswf_tpu_torch.core.config import NPSConfig
-    from npswf_tpu_torch.fit.lm_kernel import (lm_layout, lm_solve_kernel,
+    from npswf_tpu_torch.fit.lm_kernel import (lm_max_pulses, lm_solve_kernel,
                                                lm_solve_plain)
     base = NPSConfig(compute_dtype="float32")
     cal = synthetic_calibration(base, seed=1)
     K = base.nfitbins
-    limits = {dt: lm_layout0_limit(K, dt) for dt in (torch.float64, torch.float32)}
-    say("k3-wide", f"widest K3 lane whole in a block at K = {K}: fp64 "
-                   f"{limits[torch.float64]}, fp32 {limits[torch.float32]} "
-                   f"(layout 0; past it the system goes to the workspace; "
-                   f"{card})")
-    cases = [(w, m, dt) for w, m in WIDE_WIDTHS
-             for dt in (torch.float64, torch.float32)]
-    cases += [(w, 8, dt) for dt in (torch.float64, torch.float32)
-              for w in WIDE_PAST[str(dt).split(".")[1]]]
-    equal, timed, layouts = {}, {}, {}
-    for width, max_pulses, dt in cases:
-        P = limits[dt] if width == "limit" else width
-        cfg = base.replace(maxwfpulses=max(P, 15))
-        n = WIDE_LANES
-        args = list(lm_inputs(torch, cfg, cal, n, max_pulses, P,
-                              91 + P + n, dt, dev))
-        if width == "limit":
-            args[10] = WIDE_LIMIT_ITERS
-        elif P > limits[dt]:
-            args[10] = WIDE_PAST_ITERS
-        layout, ws = lm_layout(P, K, dt)
-        layouts[f"P={P} {dt}"] = {"layout": layout, "workspace_values": ws}
-        t0 = time.perf_counter()
-        k = lm_solve_kernel(cfg, *args)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        p = lm_solve_plain(cfg, *args)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        n_eq = lm_equal(torch, k, p)
-        its = p[3][args[9]]
-        say("k3-wide", f"P={P} {dt} {n} lanes (layout {layout}, up to "
-                       f"{max_pulses} pulses, at most {args[10]} "
-                       f"iterations, {int(p[2].sum())} converged, n_iter "
-                       f"{int(its.min())}..{int(its.max())}): u, chi2, "
-                       f"conv, n_iter and lambda equal on {n_eq}; "
-                       f"first call {(t1 - t0) * 1e3:.1f} ms, plain "
-                       f"{(t2 - t1) * 1e3:.1f} ms ({card})")
-        check(n_eq == n, f"K3 not bit-equal at P={P} {dt} n={n}")
-        check(layout == (0 if P <= limits[dt] else 1),
-              f"K3 at P={P} {dt} took layout {layout}")
-        equal[f"P={P} {dt} n={n}"] = n_eq
-        if width in WIDE_TIMED and dt == torch.float32:
-            ms = cuda_ms(torch, lambda: lm_solve_kernel(cfg, *args), 3)
-            rec = timed[f"P={P} fp32"] = {
-                "ms": ms, "lanes": n, "max_iter": int(args[10]),
-                "layout": layout, **lm_bound(torch, cfg, args, k)}
-            say("k3-wide", f"K3 at P={P} fp32 (layout {layout}), {n} lanes, "
-                           f"at most {args[10]} iterations: {ms:.4f} ms a "
-                           f"call, plain {(t2 - t1) * 1e3:.1f} ms (one call), "
-                           f"bound {rec['bound_ms']:.4f} ms "
-                           f"({rec['bound_ms'] / ms:.1%}) ({card})")
-        del args, k, p
+    limits = {dt: lm_max_pulses(K, dt) for dt in (torch.float64, torch.float32)}
+    say("k3-wide", f"widest K3 width at K = {K}: fp64 {limits[torch.float64]}, "
+                   f"fp32 {limits[torch.float32]} (a lane's arrays in one "
+                   f"block's shared memory; {card})")
+    equal, timed = {}, {}
+    for width, max_pulses in WIDE_WIDTHS:
+        for dt in (torch.float64, torch.float32):
+            P = limits[dt] if width == "limit" else width
+            cfg = base.replace(maxwfpulses=max(P, 15))
+            n = WIDE_LANES
+            args = list(lm_inputs(torch, cfg, cal, n, max_pulses, P,
+                                  91 + P + n, dt, dev))
+            if width == "limit":
+                args[10] = WIDE_LIMIT_ITERS
+            t0 = time.perf_counter()
+            k = lm_solve_kernel(cfg, *args)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            p = lm_solve_plain(cfg, *args)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n_eq = lm_equal(torch, k, p)
+            its = p[3][args[9]]
+            say("k3-wide", f"P={P} {dt} {n} lanes (up to {max_pulses} "
+                           f"pulses, at most {args[10]} iterations, "
+                           f"{int(p[2].sum())} converged, n_iter "
+                           f"{int(its.min())}..{int(its.max())}): u, chi2, "
+                           f"conv, n_iter and lambda equal on {n_eq}; "
+                           f"first call {(t1 - t0) * 1e3:.1f} ms, plain "
+                           f"{(t2 - t1) * 1e3:.1f} ms ({card})")
+            check(n_eq == n, f"K3 not bit-equal at P={P} {dt} n={n}")
+            equal[f"P={P} {dt} n={n}"] = n_eq
+            if width in WIDE_TIMED and dt == torch.float32:
+                ms = cuda_ms(torch, lambda: lm_solve_kernel(cfg, *args), 3)
+                rec = timed[f"P={P} fp32"] = {
+                    "ms": ms, "lanes": n, "max_iter": int(args[10]),
+                    **lm_bound(torch, cfg, args, k)}
+                say("k3-wide", f"K3 at P={P} fp32, {n} lanes: {ms:.4f} ms a "
+                               f"call, plain {(t2 - t1) * 1e3:.1f} ms (one "
+                               f"call), bound {rec['bound_ms']:.4f} ms "
+                               f"({rec['bound_ms'] / ms:.1%}) ({card})")
+            del args, k, p
+    for dt, limit in limits.items():
+        P = limit + 1
+        cfg = base.replace(maxwfpulses=P)
+        args = lm_inputs(torch, cfg, cal, 2, 2, P, 5, dt, dev)
+        kernels.reset_counts()
+        try:
+            lm_solve_kernel(cfg, *args)
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and not kernels.launches, f"K3 took P={P} {dt}")
+        say("k3-wide", f"P={P} {dt} (the limit + 1) refused before any launch")
     pbase, calib, batch = pileup_batch(torch, dev)
     summary, out24 = check_bucket_run(
         torch, "k3-wide", f"default {WIDE_BUCKETS_24}",
@@ -1567,18 +1564,19 @@ def check_k3_wide(torch, dev, card):
         card)
     del calib, batch
     t0 = time.perf_counter()
-    paths = check_path_widths(torch, dev, card, out24)
+    paths = check_path_widths(torch, dev, card, out24, limits)
     say("k3-wide", f"path runs done in {time.perf_counter() - t0:.1f} s")
-    return {"layout0_limits": {str(dt): v for dt, v in limits.items()},
-            "layouts": layouts, "bit_equal_lanes": equal, "timed": timed,
+    return {"limits": {str(dt): v for dt, v in limits.items()},
+            "bit_equal_lanes": equal, "timed": timed,
             "batch_24": dict(changes=WIDE_BUCKETS_24, **summary),
             "paths": paths}
 
 
-def check_path_widths(torch, dev, card, ref24):
+def check_path_widths(torch, dev, card, ref24, limits):
     """The pileup batch through process_batch with its widest bucket at
-    each width of WIDE_PATHS (K3 past a block's shared memory on the
-    default route, K6 one lane a block under use_fused_system), its
+    each width of WIDE_PATHS (K3's wide unit up to its limit, ``limits``
+    by type, on the default route; K6 one lane a block under
+    use_fused_system), its
     decisions (wfnpulse, gate, fit_converged, fit_n_iter) against the same
     batch with its widest bucket at 24 on the card, same route and type,
     on every block (bucket routing is result-neutral: pipeline.py's
@@ -1590,6 +1588,7 @@ def check_path_widths(torch, dev, card, ref24):
     refs = {("default", "float32"): ref24}
     for route, dname, P in WIDE_PATHS:
         dt = getattr(torch, dname)
+        P = limits[dt] if P == "limit" else P
         pbase, calib, batch = pileup_batch(torch, dev, dt)
         pbase = pbase.replace(**WIDE_PATH_BUDGETS.get(route, {}))
         kernel = BUCKET_ROUTES[route]
@@ -1639,105 +1638,6 @@ def run_width(torch, cfg, calib, batch, kernel, tag):
 
 
 # ---------------------------------------------------------------------
-# every kernel's layouts past a block's shared memory, under a cap
-# ---------------------------------------------------------------------
-# (kernel, width, layout): K3's wide lane with its system in the workspace
-# (1) or whole there (2); K6 one lane a block (1) or with its staged arrays
-# in the workspace (2); K2 ("operands") and K4 ("topk") with 5, 2 or 1
-# lanes a block, or their frames in the workspace (0). K7 (P <= 4) always
-# takes a tile of lanes.
-LAYOUTS = (("lm", 16, 1), ("lm", 24, 1), ("lm", 17, 2), ("lm", 24, 2),
-           ("system", 5, 1), ("system", 12, 1), ("system", 5, 2),
-           ("operands", 0, 5), ("operands", 0, 2), ("operands", 0, 1),
-           ("operands", 0, 0), ("topk", 12, 1), ("topk", 12, 0))
-LAYOUT_LANES = 257
-
-
-def check_layout(torch, kind, P, layout, dtype, dev, n=LAYOUT_LANES):
-    """One case of LAYOUTS: the largest cap of SMEM_CAPS under which the
-    kernel takes ``layout`` at width P, its call there on n lanes (K3:
-    retry-shaped; K6: system_inputs; K2/K4: the dense lanes) and its
-    plain version's. (cap, values differing: K3 lanes unequal, else per
-    output; the kernel's launches in the call)."""
-    from npswf_tpu_torch import kernels
-    from npswf_tpu_torch.core.calibration import synthetic_calibration
-    from npswf_tpu_torch.core.config import NPSConfig
-    from npswf_tpu_torch.fit.eval_kernel import (fused_system,
-                                                 fused_system_plain,
-                                                 system_layout)
-    from npswf_tpu_torch.fit.lm_kernel import (lm_layout, lm_solve_kernel,
-                                               lm_solve_plain)
-    from npswf_tpu_torch.ops.matched_filter import matched_filter
-    from npswf_tpu_torch.ops.search_kernel import search_layout
-    from npswf_tpu_torch.utils.synthetic import make_events
-    base = NPSConfig(compute_dtype="float32", maxwfpulses=max(P, 12))
-    cal = synthetic_calibration(base, seed=1)
-    K = base.nfitbins
-    if kind == "lm":
-        report = lambda: lm_layout(P, K, dtype)[0]  # noqa: E731
-        args = list(lm_retry_inputs(torch, base, cal, n, 8, P, 3 + P, dtype,
-                                    dev))
-        args[10] = WIDE_LIMIT_ITERS  # the plain version's M^2 launches an iteration
-        run_k = lambda: lm_solve_kernel(base, *args)  # noqa: E731
-        run_p = lambda: lm_solve_plain(base, *args)  # noqa: E731
-    elif kind == "system":
-        report = lambda: system_layout(P, K, dtype)[0]  # noqa: E731
-        sys_args, _ = system_inputs(torch, base, cal, n, P, min(P, 6),
-                                    81 + n + P, dtype, dev)
-        run_k = lambda: fused_system(base, *sys_args)  # noqa: E731
-        run_p = lambda: fused_system_plain(base, *sys_args)  # noqa: E731
-    else:
-        truth = make_events(base, cal, -(-n // base.nblocks), occupancy=1.0,
-                            max_pulses=2, pileup_prob=0.25, seed=7)
-        lanes = [x[:n].contiguous()
-                 for x in mf_lanes(torch, cal, truth.signal, dev)]
-        src = matched_filter(base, *lanes).to(torch.float32).to(dtype)
-        aux = lanes[0].to(dtype)
-        report = lambda: search_layout(base, src.shape[1], dtype)[0]  # noqa: E731
-        cap = cap_for(torch, report, layout)
-        check(cap is not None, f"[layouts] no cap gives {kind} layout {layout}")
-        kernels.reset_counts()
-        with kernels.smem_limit(cap):
-            ndiff, _, p = search_pair_equal(torch, base, src, aux, P)
-        check(int(torch.isfinite(p[0]).sum()) > 0,
-              f"[layouts] {kind}: no peak accepted")
-        return cap, ndiff, sum(kernels.launches.values())
-    cap = cap_for(torch, report, layout)
-    check(cap is not None, f"[layouts] no cap gives {kind} layout {layout}")
-    kernels.reset_counts()
-    with kernels.smem_limit(cap):
-        k = run_k()
-    n_launch = sum(kernels.launches.values())
-    p = run_p()
-    torch.cuda.synchronize()
-    if kind == "lm":
-        return cap, n - lm_equal(torch, k, p), n_launch
-    return cap, [n_unequal(torch, x, y) for x, y in zip(k, p)], n_launch
-
-
-def check_layouts(torch, dev, card):
-    """The [layouts] phase: every case of LAYOUTS at both types, each
-    kernel launched in the layout and equal to its plain version on every
-    lane (check_layout)."""
-    names = {"lm": "lm_solve", "system": "fused_system",
-             "operands": "search_operands", "topk": "search_topk"}
-    summary = {}
-    for kind, P, layout in LAYOUTS:
-        for dt in (torch.float64, torch.float32):
-            cap, ndiff, n_launch = check_layout(torch, kind, P, layout, dt, dev)
-            say("layouts", f"{names[kind]} P={P} {dt} layout {layout} (shared "
-                           f"memory capped at {cap} bytes): {n_launch} "
-                           f"launch(es); values differing from the plain "
-                           f"version {ndiff} ({card})")
-            check(n_launch == 1, f"[layouts] {kind} not launched once")
-            check(not any(ndiff) if isinstance(ndiff, list) else ndiff == 0,
-                  f"[layouts] {kind} P={P} {dt} layout {layout} differs")
-            summary[f"{names[kind]} P={P} {dt} layout {layout}"] = {
-                "cap": cap, "differ": ndiff}
-    return summary
-
-
-# ---------------------------------------------------------------------
 # K2 and K4 at wide search settings
 # ---------------------------------------------------------------------
 def reach_configs(cfg, T, dtype):
@@ -1750,7 +1650,7 @@ def reach_configs(cfg, T, dtype):
     from npswf_tpu_torch.ops.search_kernel import search_layout
 
     def lanes(c):
-        return search_layout(c, T, dtype)[0]
+        return search_layout(c, T, dtype)
 
     def eight(sigma):
         return lanes(cfg.replace(spec_sigma=sigma)) == 8
@@ -1774,35 +1674,6 @@ def reach_configs(cfg, T, dtype):
            "window limit": cfg.replace(spec_aver_window=w_lo),
            "window limit + 1": cfg.replace(spec_aver_window=w_hi)}
     return {name: (c, lanes(c)) for name, c in out.items()}
-
-
-# shared-memory caps (kernels.smem_limit) tried, largest first, to reach a
-# layout past a kernel's shared-memory limit at a width whose plain version
-# runs in seconds
-SMEM_CAPS = tuple(1 << k for k in range(17, 8, -1))
-
-
-def cap_for(torch, report, target):
-    """The largest cap of SMEM_CAPS under which report() (a layout
-    report: lm_layout, system_layout, search_layout) gives ``target``, or
-    None."""
-    from npswf_tpu_torch import kernels
-    for cap in SMEM_CAPS:
-        with kernels.smem_limit(cap):
-            if report() == target:
-                return cap
-    return None
-
-
-def lm_layout0_limit(K, dtype):
-    """The widest P whose K3 lane fits a block's shared memory whole
-    (fit.lm_kernel.lm_layout 0): 77 in fp64 and 112 in fp32 at K = 90 on
-    an H100."""
-    from npswf_tpu_torch.fit.lm_kernel import LM_COMPILED_PULSES, lm_layout
-    P = LM_COMPILED_PULSES + 1
-    while lm_layout(P + 1, K, dtype)[0] == 0:
-        P += 1
-    return P
 
 
 def setting(cfg, T):
@@ -1860,12 +1731,13 @@ def check_search_wide(torch, cfg, cal, calib, truth, batch, dev, card):
     maxwfpulses) at SEARCH_WIDE and at and one past the widest settings a
     block of 8 lanes takes (reach_configs, on the first REACH_LANES
     lanes), fp32 and fp64, every output bit-equal to the plain version's,
-    with the lanes a block each takes; timed at fp32 (K2 and K4 at PR 10's
-    settings, K2 past them and one past each edge). Then process_batch at SEARCH_WIDE_BATCHES on the
-    default route (K1, K2, K3) and the slice route (K1, K4, K5), no plain
-    call, and wfnpulse, gate, fit_converged and fit_n_iter equal to the
-    plain path's at the same setting on every block; then every
-    SearchHighRes fixture (tests/data) through K2 and K4."""
+    with the lanes a block each takes; timed at fp32 (K2 and K4 at
+    SEARCH_TIMED_BOTH, K2 alone past them). Then process_batch at
+    SEARCH_WIDE_BATCHES on the default route (K1, K2, K3) and the slice
+    route (K1, K4, K5), no plain call, and wfnpulse, gate, fit_converged
+    and fit_n_iter equal to the plain path's at the same setting on every
+    block; then every SearchHighRes fixture (tests/data) through K2 and
+    K4."""
     from npswf_tpu_torch import kernels
     from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
     from npswf_tpu_torch.engine.pipeline import process_batch
@@ -1896,7 +1768,7 @@ def check_search_wide(torch, cfg, cal, calib, truth, batch, dev, card):
                  for sg, w in SEARCH_WIDE]
         cases += [(name, c) for name, (c, _) in reach.items()]
         for name, c in cases:
-            n_lanes, ws = search_layout(c, T, dt)
+            n_lanes = search_layout(c, T, dt)
             # the edges of a layout: its first REACH_LANES lanes (the
             # plain version takes 0.7-2.4 s on all of them there)
             rows = slice(None) if name not in reach else slice(0, REACH_LANES)
@@ -1912,14 +1784,14 @@ def check_search_wide(torch, cfg, cal, calib, truth, batch, dev, card):
                                        f"at {name} {dt}")
                 summary["cases"][f"{kname} {name} {dt}"] = {
                     "setting": setting(c, T), "accepted": n_acc,
-                    "lanes_a_block": n_lanes, "workspace_values": ws,
+                    "lanes_a_block": n_lanes,
                     "max_abs_err": max_abs_diff(torch, zip(k, pl))}
                 del k, pl
-                pr10 = any(name == f"sigma={sg} window={w}"
+                both = any(name == f"sigma={sg} window={w}"
                            for sg, w in SEARCH_TIMED_BOTH)
-                edge = name in ("lag limit", "window limit")
-                if (dt == torch.float32 and not edge
-                        and (pr10 or kname == "K2")):
+                # the reach's edges (8,640 lanes) are held, not timed
+                if (dt == torch.float32 and name not in reach
+                        and (both or kname == "K2")):
                     rec = summary["timed"][f"{kname} {name}"] = dict(
                         time_search(torch, c, s, a, p), lanes_a_block=n_lanes)
                     say("search-wide", f"{kname} fp32 {setting(c, T)}: "
@@ -2446,9 +2318,6 @@ def run(torch) -> int:
     t0 = time.perf_counter()
     k3_wide = check_k3_wide(torch, dev, card)
     say("k3-wide", f"phase done in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    layouts = check_layouts(torch, dev, card)
-    say("layouts", f"phase done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 6. the segment executor, the CLI and the tools ------------------
     with tempfile.TemporaryDirectory() as wf_dir:
@@ -2481,7 +2350,6 @@ def run(torch) -> int:
     print(json.dumps({"buckets": buckets}))
     print(json.dumps({"models": models}))
     print(json.dumps({"k3_wide": k3_wide}))
-    print(json.dumps({"layouts": layouts}))
     print(json.dumps({"search_wide": search_wide}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"mesh": mesh}))

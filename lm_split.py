@@ -55,7 +55,7 @@ PARTS = {
 BARRIER = re.compile(r"\b(tile\.sync|__syncthreads|pair_sync)\(\);")
 FUNC = re.compile(r"^\s*(?:__device__[^(;]*?\b(\w+)\s*\(|(lm_wide_kernel)\()")
 KERNEL_ANCHOR = "extern __shared__ __align__(16) unsigned char smem[];"
-OPTIN = "const size_t optin = smem_optin();"
+OPTIN = "return (size_t)v;"
 
 STAMPS = r"""
 // ---- lm_split.py: clock64() stamps (this copy only) ----
@@ -123,11 +123,10 @@ def instrument(src: str, stamps: bool = True):
     text = "\n".join(out) + "\n"
     if KERNEL_ANCHOR not in text or OPTIN not in text:
         raise SystemExit("lm_split: the source lacks the kernel's shared-memory "
-                         "declaration or plan_wide's smem_optin()")
+                         "declaration or smem_optin()")
     text = text.replace(KERNEL_ANCHOR, KERNEL_ANCHOR + " split_init();", 1)
     # the stamps' static shared memory comes off what a lane may take
-    text = text.replace(
-        OPTIN, "const size_t optin = smem_optin() - 16 * (NSITES + 2);", 1)
+    text = text.replace(OPTIN, "return (size_t)v - 16 * (NSITES + 2);", 1)
     head, sep, rest = text.partition("namespace npswf {")
     text = (head + f"#define NSITES {len(sites)}\n" + STAMPS + sep + rest
             + ENTRY)
@@ -165,20 +164,9 @@ def build(root: str, out_dir: str, defines=(), stamps=True):
     P_, I_ = ctypes.c_void_p, ctypes.c_int
     lib.split_launch.argtypes = [I_, I_, P_, P_, I_, I_, I_, I_, P_, P_]
     lib.split_launch.restype = I_
-    lib.npswf_lm_layout.argtypes = [I_, I_, I_, P_]
-    lib.npswf_lm_layout.restype = I_
+    lib.npswf_lm_max_pulses.argtypes = [I_, I_]
+    lib.npswf_lm_max_pulses.restype = I_
     return lib, sites
-
-
-def widest_whole(lib, dt, nk):
-    """The widest P whose lane the copy keeps whole in a block's shared
-    memory (layout 0 of plan_wide)."""
-    ws = ctypes.c_longlong(0)
-    code = 0 if str(dt) == "torch.float32" else 1
-    P = 16
-    while lib.npswf_lm_layout(code, P + 1, nk, ctypes.byref(ws)) == 0:
-        P += 1
-    return P
 
 
 def run_width(torch, lib, sites, cfg, cal, P, dt, lanes):
@@ -211,13 +199,7 @@ def run_width(torch, lib, sites, cfg, cal, P, dt, lanes):
                         max(cfg.lm_ftol, 100 * eps), max(cfg.lm_gtol, 100 * eps),
                         eps, cfg.spline_gate_lo, cfg.ntime - 1, SAT_THRESH,
                         CHOL_EPS], dtype=torch.float64)
-    # a lane past a block's shared memory: its region of the workspace
-    ws_lane = ctypes.c_longlong(0)
-    lib.npswf_lm_layout(0 if dt == torch.float32 else 1, P, K,
-                        ctypes.byref(ws_lane))
-    ws = torch.empty((N * ws_lane.value,), dtype=dt, device=dev)
-    in_p = (ctypes.c_void_p * 13)(*(t.data_ptr() for t in ins),
-                                  ws.data_ptr() if ws_lane.value else None)
+    in_p = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in ins))
     out_p = (ctypes.c_void_p * 6)(*(t.data_ptr() for t in outs))
 
     def launch():
@@ -259,8 +241,7 @@ def main() -> int:
     ap.add_argument("--lanes", type=int, default=4096)
     ap.add_argument("--widths", nargs="+",
                     default=["16:fp32", "24:fp32", "71:fp64"],
-                    help="P:fp32|fp64 pairs; P may be 'limit' (the widest "
-                         "lane kept whole in a block's shared memory)")
+                    help="P:fp32|fp64 pairs; P may be 'limit'")
     ap.add_argument("--out", default=os.path.join(REPO, "build", "lm_split"))
     ap.add_argument("--define", action="append", default=[],
                     metavar="NAME=VALUE",
@@ -297,7 +278,8 @@ def main() -> int:
     for spec in args.widths:
         p, _, name = spec.partition(":")
         dt = torch.float64 if name == "fp64" else torch.float32
-        P = widest_whole(lib, dt, cfg.nfitbins) if p == "limit" else int(p)
+        P = (lib.npswf_lm_max_pulses(0 if dt == torch.float32 else 1,
+                                     cfg.nfitbins) if p == "limit" else int(p))
         r = run_width(torch, lib, sites, cfg, cal, P, dt, args.lanes)
         res.append(r)
         parts = ", ".join(f"{k} {v:.0f}" for k, v in

@@ -121,19 +121,12 @@ __device__ __forceinline__ void copy_rows_async(T* s, const T* g, long long ld,
   }
 }
 
-// A cap on the shared memory a block may take, below the card's own (0:
-// none; npswf_set_smem_limit). The layouts past each kernel's shared-memory
-// limit (wide K3 lanes, wide K6/K7 lanes, K2/K4's fewer lanes a block and
-// global frames) are otherwise reached only at widths whose plain versions
-// run for minutes; under a cap the tests reach them at small widths.
-inline size_t g_smem_limit = 0;
-
 // The shared memory a block of the current device may opt in to.
 inline size_t smem_optin() {
   int dev = 0, v = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return g_smem_limit > 0 && g_smem_limit < (size_t)v ? g_smem_limit : (size_t)v;
+  return (size_t)v;
 }
 
 // Raise a kernel's dynamic shared memory limit to `bytes` when that is above

@@ -62,8 +62,9 @@
 // caller's layout after each chunk and come back from there at the next, so
 // each sum still adds the bins in order from zero; nothing is staged for
 // the outputs, and chunks shrink (down to one bin) until the lane's staged
-// arrays fit. Where not even that fits, they live in a global workspace
-// the wrapper allocates, one region a lane (npswf_system_layout).
+// arrays fit. Only where not even that fits (at K = 90 on a card with 227
+// KB a block, from 3,337 pulses in fp64 and 6,380 in fp32) is the width
+// refused (npswf_system_layout).
 //
 // Compiled with -fmad=false: each product and sum rounds as in the plain
 // PyTorch versions (fit/eval_kernel.py), which sum over the bins in order.
@@ -134,13 +135,12 @@ eval_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
 // the start of shared memory; o_cs the chunk's columns; o_int, in bytes, the
 // int arrays.
 // wide: 0 the tile layout, 1 one lane a block with the sums through the
-// outputs, 2 the same with the staged arrays in a global workspace of
-// ``region`` bytes a lane (smem 0).
+// outputs.
 struct Tile {
   int L, R, C, nb, U, kc, LS, threads, wide;
   int off[7];
   int o_cs;
-  size_t o_int, smem, region;
+  size_t o_int, smem;
 };
 
 // Offsets of L lanes' staged arrays (per_lane values a lane each, then
@@ -174,7 +174,6 @@ static bool plan_tile(size_t tsz, int p, int nk, const int* per_lane, int narr,
   t.kc = nk > 0 ? (nk + nch - 1) / nch : 1;
   t.LS = (t.kc * t.C) | 1;
   t.wide = 0;
-  t.region = 0;
   const size_t out_vals = (size_t)M * M + M + 1;
   for (int L = 64; L >= 1; L /= 2) {
     size_t vals = 0;
@@ -185,8 +184,7 @@ static bool plan_tile(size_t tsz, int p, int nk, const int* per_lane, int narr,
     if (bytes < (size_t)L * out_vals * tsz) bytes = (size_t)L * out_vals * tsz;
     const int owners = (L * t.U + 31) / 32 * 32;
     const int threads = owners < 128 ? 128 : owners;
-    const size_t budget = kTileBudget < optin ? kTileBudget : optin;
-    if ((bytes <= budget && threads <= kTileThreads) || L == 1) {
+    if ((bytes <= kTileBudget && threads <= kTileThreads) || L == 1) {
       if (bytes > optin || threads > kTileThreads) break;
       t.L = L;
       t.threads = threads;
@@ -196,7 +194,7 @@ static bool plan_tile(size_t tsz, int p, int nk, const int* per_lane, int narr,
     }
   }
   // the wide layout: one lane, chunks down to one bin within the card's
-  // shared memory, else the whole chunk in a global workspace
+  // shared memory
   t.L = 1;
   const int owners = (t.U + 31) / 32 * 32;
   t.threads = owners < 128 ? 128 : owners > kTileThreads ? kTileThreads : owners;
@@ -210,11 +208,7 @@ static bool plan_tile(size_t tsz, int p, int nk, const int* per_lane, int narr,
       return true;
     }
   }
-  t.wide = 2;
-  t.LS = (t.kc * t.C) | 1;
-  t.region = (place(t, 1, per_lane, narr, ints, tsz) + 15) / 16 * 16;
-  t.smem = 0;
-  return true;
+  return false;
 }
 
 // K6 stages a lane's planes [4, SEG], y [K], w [K], the physical parameters
@@ -356,7 +350,9 @@ __device__ __forceinline__ void gram_reduce(const Tile& t, T* s, int lanes,
     T* Al = A + lane0 * M * M;
     T* gl = g + lane0 * M;
     T* cl = chi2 + lane0;
-    for (int k0 = 0; k0 < nk; k0 += t.kc) {
+    // one pass at least: with no bins the owners store zero sums, as the
+    // tile's do
+    for (int k0 = 0; k0 < max(nk, 1); k0 += t.kc) {
       const int kc = min(t.kc, nk - k0);
       for (int kk = threadIdx.x; kk < kc; kk += blockDim.x)
         build(0, k0 + kk, cs + kk * t.C);
@@ -392,39 +388,6 @@ __device__ __forceinline__ void gram_reduce(const Tile& t, T* s, int lanes,
   store_span(chi2 + lane0, c2, lanes);
 }
 
-// The block's staged arrays: shared memory, or its lane's region of the
-// global workspace (wide layout 2), where the copies are plain loads.
-template <bool Wide>
-__device__ __forceinline__ unsigned char* tile_region(unsigned char* smem,
-                                                      unsigned char* ws,
-                                                      const Tile& t) {
-  if (Wide && t.wide == 2) return ws + (size_t)blockIdx.x * t.region;
-  return smem;
-}
-
-template <bool Wide, typename T>
-__device__ __forceinline__ void stage_span(const Tile& t, T* s, const T* g,
-                                           int count) {
-  if (Wide && t.wide == 2) {
-    for (int i = threadIdx.x; i < count; i += blockDim.x) s[i] = g[i];
-  } else {
-    copy_span_async(s, g, count);
-  }
-}
-
-template <bool Wide, typename T>
-__device__ __forceinline__ void stage_rows(const Tile& t, T* s, const T* g,
-                                           long long ld, int rows, int k) {
-  if (Wide && t.wide == 2) {
-    for (int i = threadIdx.x; i < rows * k; i += blockDim.x) {
-      const int r = i / k;
-      s[i] = g[r * ld + (i - r * k)];
-    }
-  } else {
-    copy_rows_async(s, g, ld, rows, k);
-  }
-}
-
 // ---- K6 -------------------------------------------------------------
 template <typename T, int R, bool Wide>
 __global__ void __launch_bounds__(kTileThreads)
@@ -433,25 +396,23 @@ system_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
               const T* __restrict__ u, const T* __restrict__ lo,
               const T* __restrict__ hi, const T* __restrict__ pseed,
               const uint8_t* __restrict__ pmask, T* __restrict__ A,
-              T* __restrict__ g, T* __restrict__ chi2,
-              unsigned char* __restrict__ ws, SysParams prm, Tile t) {
+              T* __restrict__ g, T* __restrict__ chi2, SysParams prm, Tile t) {
   extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* region = tile_region<Wide>(smem, ws, t);
-  T* s = reinterpret_cast<T*>(region);
+  T* s = reinterpret_cast<T*>(smem);
   const int P = prm.p, M = 1 + 2 * P, K = prm.nk;
   const long long lane0 = (long long)blockIdx.x * t.L;
   const int lanes = (int)min((long long)t.L, (long long)prm.n - lane0);
   T* planes = s + t.off[0];  // [L, 4, SEG]
   T* ys = s + t.off[1];      // [L, K]
-  T* ws_ = s + t.off[2];     // [L, K]
+  T* ws = s + t.off[2];      // [L, K]
   T* pp = s + t.off[3];      // [L, M] physical parameters
   T* dp = s + t.off[4];      // [L, M] dp/du
   T* uu = s + t.off[5];      // [L, P] spline fractions
   T* actp = s + t.off[6];    // [L, P] pulse masks
-  int* base = reinterpret_cast<int*>(region + t.o_int);  // [L, P] slots of bin 0
-  stage_span<Wide>(t, planes, coeffs + lane0 * 4 * kSeg, lanes * 4 * kSeg);
-  stage_rows<Wide>(t, ys, y + lane0 * prm.ld[0], prm.ld[0], lanes, K);
-  stage_rows<Wide>(t, ws_, w + lane0 * prm.ld[1], prm.ld[1], lanes, K);
+  int* base = reinterpret_cast<int*>(smem + t.o_int);  // [L, P] slots of bin 0
+  copy_span_async(planes, coeffs + lane0 * 4 * kSeg, lanes * 4 * kSeg);
+  copy_rows_async(ys, y + lane0 * prm.ld[0], prm.ld[0], lanes, K);
+  copy_rows_async(ws, w + lane0 * prm.ld[1], prm.ld[1], lanes, K);
   // while the copies fly: the transform, component i of the tile's rows
   // [lanes, M]; a time component also gives its pulse's fraction, slot and
   // mask
@@ -476,7 +437,7 @@ system_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
                           [&](int lane, int k, T* row) {
                             const int b = lane * P;
                             bin_columns<T, 0>(k, prm.fit_lo, gate_lo, gate_hi,
-                                              ws_[lane * K + k], ys[lane * K + k],
+                                              ws[lane * K + k], ys[lane * K + k],
                                               planes + lane * 4 * kSeg,
                                               pp + lane * M, dp + lane * M,
                                               uu + b, base + b, actp + b, row,
@@ -542,19 +503,17 @@ static cudaError_t launch_tile(Kernel kernel, const Tile& t, int n,
 
 template <typename T>
 static cudaError_t launch_system(const void* const* in, void* const* out,
-                                 void* ws, const SysParams& prm,
-                                 cudaStream_t st) {
+                                 const SysParams& prm, cudaStream_t st) {
   Tile t;
   if (!plan_system(sizeof(T), prm.p, prm.nk, smem_optin(), t))
     return cudaErrorInvalidValue;
-  if (t.wide == 2 && ws == nullptr) return cudaErrorInvalidValue;
   auto kernel = t.wide ? (t.R == 2 ? system_kernel<T, 2, true> : system_kernel<T, 4, true>)
                        : (t.R == 2 ? system_kernel<T, 2, false> : system_kernel<T, 4, false>);
   return launch_tile(kernel, t, prm.n, st, (const T*)in[0], (const T*)in[1],
                      (const T*)in[2], (const T*)in[3], (const T*)in[4],
                      (const T*)in[5], (const T*)in[6], (const T*)in[7],
                      (const uint8_t*)in[8], (T*)out[0], (T*)out[1], (T*)out[2],
-                     (unsigned char*)ws, prm);
+                     prm);
 }
 
 template <typename T>
@@ -572,23 +531,12 @@ static cudaError_t launch_neq(const void* const* in, void* const* out,
 }  // namespace npswf
 
 // The layout of K6 at P pulses over nk fit bins: 0 the tile, 1 one lane a
-// block with its sums through the outputs, 2 the same with its staged
-// arrays in a global workspace of *region bytes a lane (0 otherwise; the
-// wrapper allocates n times that).
-extern "C" int npswf_system_layout(int dtype, int p, int nk,
-                                   long long* region) {
+// block with its sums through the outputs, -1 a width not even one lane of
+// which fits a block's shared memory (refused).
+extern "C" int npswf_system_layout(int dtype, int p, int nk) {
   const size_t tsz = dtype == npswf::kFloat32 ? sizeof(float) : sizeof(double);
   npswf::Tile t;
-  const bool ok = npswf::plan_system(tsz, p, nk, npswf::smem_optin(), t);
-  *region = ok ? (long long)t.region : 0;
-  return ok ? t.wide : -1;
-}
-
-// Caps the shared memory a block of any kernel here may take at ``bytes``
-// (0: the card's own limit; common.cuh, g_smem_limit).
-extern "C" int npswf_set_smem_limit(long long bytes) {
-  npswf::g_smem_limit = bytes > 0 ? (size_t)bytes : 0;
-  return 0;
+  return npswf::plan_system(tsz, p, nk, npswf::smem_optin(), t) ? t.wide : -1;
 }
 
 extern "C" int npswf_fused_eval(int dtype, const void* coeffs, const void* x0,
@@ -639,10 +587,9 @@ extern "C" int npswf_fused_neq(int dtype, int p, const void* const* in,
 }
 
 // in: coeffs, x0, y, w, u, lo, hi, pseed, pmask; out: A [N, M, M], g [N, M],
-// chi2 [N]; ldy, ldw: the row strides of y and w; ws: n lanes of
-// npswf_system_layout's bytes, or null where that is 0
+// chi2 [N]; ldy, ldw: the row strides of y and w
 extern "C" int npswf_fused_system(int dtype, int p, const void* const* in,
-                                  void* const* out, void* ws, int n, int nk,
+                                  void* const* out, int n, int nk,
                                   long long ldy, long long ldw, int fit_lo,
                                   double gate_lo, double gate_hi, void* stream) {
   npswf::SysParams prm{};
@@ -656,6 +603,6 @@ extern "C" int npswf_fused_system(int dtype, int p, const void* const* in,
   prm.ld[1] = ldw;
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(dtype == npswf::kFloat32
-                   ? npswf::launch_system<float>(in, out, ws, prm, st)
-                   : npswf::launch_system<double>(in, out, ws, prm, st));
+                   ? npswf::launch_system<float>(in, out, prm, st)
+                   : npswf::launch_system<double>(in, out, prm, st));
 }

@@ -1,6 +1,6 @@
 // K3's entry points: the width dispatch and the C interface (the kernel is
 // in lm.cuh, its instantiations in lm_p*.cu, the wider widths in
-// lm_wide.cu, which also holds npswf_lm_layout).
+// lm_wide.cu, which also holds npswf_lm_max_pulses).
 #include "lm.cuh"
 
 NPSWF_LM_WIDTH(extern, 1)

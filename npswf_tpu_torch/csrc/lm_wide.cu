@@ -45,18 +45,10 @@
 //     any order, NaN propagating as torch.amax does.
 // The damped matrix and its factor live in the trial point's slot of the
 // system, which step() overwrites anyway and system() rewrites after it;
-// the back solve's products overwrite the factor there. Where a lane's
-// arrays fit a block's shared memory (plan_wide: at K = 90 fit bins on a
-// card with 227 KB a block, up to 77 pulses in fp64 and 112 in fp32, with
-// chunks down to 8 bins), they all live there: layout 0, the one above.
-// Past it, layout 1 moves the lane's two system slots (2 (MT + M + 1)
-// values, 235 KB at P = 120 in fp32) to a region of a global workspace the
-// wrapper allocates, one a lane; the vectors, the planes and the chunk
-// stay in shared memory, and with them off the block more lanes share an
-// SM (113 pulses in fp32 ran faster than 112 in layout 0). Past even
-// that (some 640 pulses in fp64), layout 2 puts the whole lane in the
-// workspace. Every sum, the factor's panels and the back solve keep their
-// order in each layout: only the addresses differ.
+// the back solve's products overwrite the factor there. So the only limit
+// is the block's shared memory (wide_chunk): at K = 90 fit bins on a card
+// with 227 KB a block, 77 pulses in fp64 and 112 in fp32, the widest with
+// chunks of 8 bins.
 //
 // Compiled with -fmad=false, as the rest.
 #include "lm.cuh"
@@ -85,15 +77,13 @@ __host__ __device__ inline int row_off(int M, int a) {
   return a * (2 * M - a - 1) / 2;
 }
 
-// offsets, in values, of a wide lane's arrays; the system's two slots
-// among them unless sys_in is false (layout 1)
+// shared-memory offsets, in values, of a wide lane's arrays
 struct WideLayout {
   int P, M, MT, NE, C, ld, nb, kc;
   int y, w, cs, sys, uv, sns, dps, half, mid, seed, pp, scale, gv, dg, yv, uu,
       actp, end;
 
-  __host__ __device__ WideLayout(int p, int nk, int kc_, bool sys_in = true)
-      : P(p), kc(kc_) {
+  __host__ __device__ WideLayout(int p, int nk, int kc_) : P(p), kc(kc_) {
     M = 1 + 2 * P;
     MT = M * (M + 1) / 2;
     NE = MT + M + 1;
@@ -104,7 +94,7 @@ struct WideLayout {
     w = y + nk;
     cs = (w + nk + 3) / 4 * 4;  // 16-byte aligned rows
     sys = cs + kc * ld;
-    uv = sys + (sys_in ? 2 * NE : 0);
+    uv = sys + 2 * NE;
     sns = uv + 2 * M;
     dps = sns + 2 * M;
     half = dps + 2 * M;
@@ -146,13 +136,10 @@ __device__ __forceinline__ void pair_sync() {
   asm volatile("bar.sync 1, 64;" ::: "memory");
 }
 
-// Work: layouts 1 and 2 (a workspace); layout 0 is compiled apart, so that
-// every one of its addresses stays a shared-memory one
-template <typename T, bool Work>
+template <typename T>
 struct WideLane {
   WideLayout L;
-  T* v;          // the lane's values
-  T* sysv;       // its system's two slots (Work)
+  T* v;          // the block's values
   int* base;     // [P]
   uint8_t* ok;   // [M]
   uint8_t* dead; // [M]
@@ -160,10 +147,7 @@ struct WideLane {
   int tid, nt;   // the thread's rank and the team's size
   T x0;
 
-  __device__ T* sys(int slot) const {
-    if constexpr (Work) return sysv + slot * L.NE;
-    return v + L.sys + slot * L.NE;
-  }
+  __device__ T* sys(int slot) const { return v + L.sys + slot * L.NE; }
   __device__ int roff(int a) const { return row_off(L.M, a); }
 
   // the sin transform of the point in slot ``slot``, each time component
@@ -459,7 +443,7 @@ struct WideLane {
   }
 };
 
-template <typename T, int NT, bool Work>
+template <typename T, int NT>
 __global__ void __launch_bounds__(NT, (kWideMinBlocks<T, NT>))
 lm_wide_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
                const T* __restrict__ yt, const T* __restrict__ wt,
@@ -470,10 +454,9 @@ lm_wide_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
                const int* __restrict__ budget, const T* __restrict__ lam0,
                T* __restrict__ u_out, T* __restrict__ chi2_out,
                uint8_t* __restrict__ conv_out, int* __restrict__ niter_out,
-               T* __restrict__ edm_out, T* __restrict__ lam_out,
-               T* __restrict__ ws, LMParams prm, int P, int kc, int layout,
-               long long ws_lane) {
-  const WideLayout L(P, prm.nk, kc, !Work || layout != 1);
+               T* __restrict__ edm_out, T* __restrict__ lam_out, LMParams prm,
+               int P, int kc) {
+  const WideLayout L(P, prm.nk, kc);
   const int M = L.M;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, nt = NT;
@@ -491,15 +474,7 @@ lm_wide_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
     }
     return;
   }
-  // layout 0: the lane in shared memory; 1: its system in its region of
-  // the workspace; 2: the whole lane there
   T* v = reinterpret_cast<T*>(smem);
-  T* sysv = nullptr;
-  if constexpr (Work) {
-    T* const region = ws + lane * ws_lane;
-    if (layout == 2) v = region;
-    sysv = layout == 1 ? region : v + L.sys;
-  }
   int* base = reinterpret_cast<int*>(v + L.end);
   uint8_t* ok = reinterpret_cast<uint8_t*>(base + P);
   uint8_t* dead = ok + M;
@@ -522,7 +497,7 @@ lm_wide_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
   for (int q = tid; q < P; q += nt) v[L.actp + q] = pmask[row + 2 + 2 * q] ? T(1) : T(0);
   __syncthreads();
 
-  WideLane<T, Work> W{L, v, sysv, base, ok, dead, prm, tid, nt, x0[lane]};
+  WideLane<T> W{L, v, base, ok, dead, prm, tid, nt, x0[lane]};
   int cur = 0;
   W.system(0);
   T chi2 = W.sys(0)[L.MT + M];
@@ -564,79 +539,50 @@ lm_wide_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
   }
 }
 
-// The bins a chunk of a wide lane of P pulses over nk bins stages, its
-// system in shared memory (sys_in) or not: all of them, or as many down to
-// kChunkFloor, where the lane stays within kLaneBytes (eight lanes an SM);
-// else kChunkFloor where the lane fits a block (optin bytes); else as many
-// as fit; 0 where not even kMinChunk (or nk) fit.
-static int wide_chunk(int p, int nk, size_t tsize, size_t optin, bool sys_in) {
+// The bins a chunk of a wide lane of P pulses over nk bins stages: all of
+// them, or as many down to kChunkFloor, where the lane stays within
+// kLaneBytes (eight lanes an SM); else kChunkFloor where the lane fits a
+// block (optin bytes); else as many as fit; 0 where not even kMinChunk (or
+// nk) fit.
+static int wide_chunk(int p, int nk, size_t tsize, size_t optin) {
+  if (p <= kMaxP) return 0;
   const auto fits = [&](int kc, size_t cap) {
-    return WideLayout(p, nk, kc, sys_in).bytes(tsize) <= cap;
+    return WideLayout(p, nk, kc).bytes(tsize) <= cap;
   };
   const int all = nk > 1 ? nk : 1;
   const int floor = all < kChunkFloor ? all : kChunkFloor;
-  const size_t lane_cap = kLaneBytes < optin ? kLaneBytes : optin;
   for (int kc = all; kc >= floor; --kc)
-    if (fits(kc, lane_cap)) return kc;
+    if (fits(kc, kLaneBytes)) return kc;
   const int lo = all < kMinChunk ? all : kMinChunk;
   for (int kc = floor; kc >= lo; --kc)
     if (fits(kc, optin)) return kc;
   return 0;
 }
 
-// A wide lane's layout (0, 1 or 2, above), its chunk of bins, its shared
-// memory and the values of workspace it takes.
-struct WidePlan {
-  int layout, kc;
-  size_t smem;
-  long long ws_lane;
-};
-
-static WidePlan plan_wide(int p, int nk, size_t tsize) {
-  const size_t optin = smem_optin();
-  for (int layout = 0; layout < 2; ++layout) {
-    const bool sys_in = layout == 0;
-    const int kc = wide_chunk(p, nk, tsize, optin, sys_in);
-    if (kc > 0) {
-      const WideLayout L(p, nk, kc, sys_in);
-      return {layout, kc, L.bytes(tsize), sys_in ? 0 : 2LL * L.NE};
-    }
-  }
-  const int kc = nk > 1 ? nk : 1;
-  return {2, kc, 0, (long long)(WideLayout(p, nk, kc).bytes(tsize) / tsize)};
-}
-
-template <typename T, int NT, bool Work>
-static cudaError_t launch_team(int p, const WidePlan& w, const void* const* in,
+template <typename T, int NT>
+static cudaError_t launch_team(int p, int kc, const void* const* in,
                                void* const* out, const LMParams& prm,
                                cudaStream_t st) {
-  const cudaError_t e = allow_smem(lm_wide_kernel<T, NT, Work>, w.smem);
+  const size_t smem = WideLayout(p, prm.nk, kc).bytes(sizeof(T));
+  const cudaError_t e = allow_smem(lm_wide_kernel<T, NT>, smem);
   if (e != cudaSuccess) return e;
-  lm_wide_kernel<T, NT, Work><<<prm.n, NT, w.smem, st>>>(
+  lm_wide_kernel<T, NT><<<prm.n, NT, smem, st>>>(
       (const T*)in[0], (const T*)in[1], (const T*)in[2], (const T*)in[3],
       (const T*)in[4], (const T*)in[5], (const T*)in[6], (const T*)in[7],
       (const uint8_t*)in[8], (const uint8_t*)in[9], (const int*)in[10],
       (const T*)in[11], (T*)out[0], (T*)out[1], (uint8_t*)out[2],
-      (int*)out[3], (T*)out[4], (T*)out[5], (T*)in[12], prm, p, w.kc,
-      w.layout, w.ws_lane);
+      (int*)out[3], (T*)out[4], (T*)out[5], prm, p, kc);
   return cudaGetLastError();
 }
 
-// in[12]: the workspace, n lanes of npswf_lm_layout's values (null where
-// that is 0)
 template <typename T>
 cudaError_t launch_wide(int p, const void* const* in, void* const* out,
                         const LMParams& prm, cudaStream_t st) {
-  if (p <= kMaxP) return cudaErrorInvalidValue;
-  const WidePlan w = plan_wide(p, prm.nk, sizeof(T));
-  if (w.ws_lane > 0 && in[12] == nullptr) return cudaErrorInvalidValue;
-  if (w.layout > 0)
-    return 1 + 2 * p <= kTeamSmallM
-               ? launch_team<T, kTeamSmall, true>(p, w, in, out, prm, st)
-               : launch_team<T, kTeamLarge, true>(p, w, in, out, prm, st);
+  const int kc = wide_chunk(p, prm.nk, sizeof(T), smem_optin());
+  if (kc == 0) return cudaErrorInvalidValue;
   return 1 + 2 * p <= kTeamSmallM
-             ? launch_team<T, kTeamSmall, false>(p, w, in, out, prm, st)
-             : launch_team<T, kTeamLarge, false>(p, w, in, out, prm, st);
+             ? launch_team<T, kTeamSmall>(p, kc, in, out, prm, st)
+             : launch_team<T, kTeamLarge>(p, kc, in, out, prm, st);
 }
 
 template cudaError_t launch_wide<float>(int, const void* const*, void* const*,
@@ -646,16 +592,12 @@ template cudaError_t launch_wide<double>(int, const void* const*, void* const*,
 
 }  // namespace npswf
 
-// The layout of a lane of P pulses over nk fit bins at this dtype (0, 1 or
-// 2, above; 0 for the compiled widths) and the values of workspace it
-// takes, to *ws_lane (the wrapper allocates n times that).
-extern "C" int npswf_lm_layout(int dtype, int p, int nk, long long* ws_lane) {
+// The widest P a lane of nk fit bins takes at this dtype: the compiled
+// widths, then the wide kernel while its lane fits a block.
+extern "C" int npswf_lm_max_pulses(int dtype, int nk) {
   const size_t tsize = dtype == npswf::kFloat32 ? sizeof(float) : sizeof(double);
-  if (p <= npswf::kMaxP) {
-    *ws_lane = 0;
-    return 0;
-  }
-  const npswf::WidePlan w = npswf::plan_wide(p, nk, tsize);
-  *ws_lane = w.ws_lane;
-  return w.layout;
+  const size_t optin = npswf::smem_optin();
+  int p = npswf::kMaxP;
+  while (npswf::wide_chunk(p + 1, nk, tsize, optin) > 0) ++p;
+  return p;
 }

@@ -40,7 +40,7 @@
 //     (ext, then sabs, then the second Gold iterate; y, then the first Gold
 //     iterate; logr and w, then pvec, then decon), 2.2 KB a lane at fp32
 //     and the default sigma = 2 beside its 0.9 KB of src and aux. No global
-//     scratch wherever one lane's frames fit a block (below);
+//     scratch;
 //   - the phases that are independent per bin (extension, y, the Markov
 //     terms, w, sabs, pvec, each Gold iteration into the other buffer,
 //     decon and the operands) are split over the team, bin e to thread
@@ -70,11 +70,11 @@
 // multiple of 8. The taps (resp, then bvec, in the working type) come from
 // a device buffer the wrapper fills once a setting, and the block stages
 // them beside its rows. The frames grow with the reach and the window, so
-// the lanes a block (plan_search) drop from kLanes (every default setting:
-// the layout of PR 4) one by one to 1 as they do; past what one lane's
-// frames take of a block's shared memory, a block of one lane reads its
-// taps and rows where they lie and keeps its frames in its region of a
-// global workspace the wrapper allocates. Nothing is refused.
+// the lanes a block (plan_search) drop from kLanes (every default setting
+// keeps the layout tuned for it) one by one to 1 as they do. Only a setting whose
+// one lane does not fit a block's shared memory is refused: at T = 110 on
+// a card with 227 KB a block, a sigma above 277 in fp64 (561 in fp32), or
+// a window above 4,720 bins at sigma 2 (9,560).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -89,8 +89,7 @@ constexpr int kScalars = 4;              // a lane's broadcast values
 constexpr int kTeam = 16;                // threads a lane
 constexpr int kLanes = kSearchBlock / kTeam;  // the most lanes a block
 
-// lanes: lanes a block (kLanes down to 1), 0 for one lane with its frames
-// in the global workspace
+// lanes: lanes a block (kLanes down to 1)
 struct SearchParams {
   int ssize, shift, size_ext, marg, kfit, lh_gold, posit, aver_window, iters,
       aux_offset, select_p, lanes;
@@ -130,8 +129,7 @@ static size_t search_smem_bytes(size_t tsize, int ssize, int size_ext,
 
 // The lanes a block at this margin (kLanes, then as many as fit as the
 // frames grow, so that a block keeps as much of an SM's shared memory in
-// use as it can; 0 where not even one lane's fit: its frames then live in
-// the global workspace) and its shared memory.
+// use as it can; 0 where not even one lane's fit) and its shared memory.
 static int plan_search(size_t tsize, int ssize, int size_ext, int marg,
                        int lh_gold, size_t& smem) {
   for (int lanes = kLanes; lanes >= 1; --lanes) {
@@ -171,13 +169,10 @@ __device__ __forceinline__ void tap_sums(const T* x, const T* taps, int ntaps,
   }
 }
 
-// Global: one lane a block with its frames in the workspace; the layouts
-// of frames in shared memory are compiled apart, so that every one of their
-// addresses stays a shared-memory one
-template <typename T, bool Global>
+template <typename T>
 __global__ void __launch_bounds__(kSearchBlock)
 search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
-              const T* __restrict__ taps, T* __restrict__ frames,
+              const T* __restrict__ taps,
               T* __restrict__ negkey, T* __restrict__ cent,
               T* __restrict__ posy, T* __restrict__ auxsel,
               const SearchParams p, int n) {
@@ -189,32 +184,18 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
   const int marg = p.marg;
   const int R = frame_rows(size_ext, marg);
   const int stride = lane_stride(size_ext, marg);
-  const int lanes = Global ? 1 : p.lanes;
+  const int lanes = p.lanes;
+  T* s_resp = reinterpret_cast<T*>(smem_raw);  // [lh_gold]
+  T* s_bvec = s_resp + p.lh_gold;              // [2 * lh_gold - 1]
+  T* s_src = s_resp + taps_len(p.lh_gold);     // [lanes, T]
+  T* s_aux = s_src + lanes * ssize;            // [lanes, T]
+  T* s_lane = s_aux + lanes * ssize;           // [lanes, stride]
+
   const int lane0 = blockIdx.x * lanes;
   const int nl = min(lanes, n - lane0);
-  const T* s_resp;  // [lh_gold], then bvec [2 * lh_gold - 1]
-  const T* s_src;   // [lanes, T]
-  const T* s_aux;   // [lanes, T]
-  T* s_lane;        // [lanes, stride]
-  if constexpr (Global) {
-    // one lane: its taps and rows where they lie, its frames in its region
-    s_resp = taps;
-    s_src = src + (size_t)lane0 * ssize;
-    s_aux = aux + (size_t)lane0 * ssize;
-    s_lane = frames + (size_t)blockIdx.x * stride;
-  } else {
-    T* const r = reinterpret_cast<T*>(smem_raw);
-    T* const a = r + taps_len(p.lh_gold);
-    T* const b = a + lanes * ssize;
-    for (int j = threadIdx.x; j < 3 * p.lh_gold - 1; j += blockDim.x) r[j] = taps[j];
-    load_span(src + (size_t)lane0 * ssize, nl * ssize, [&](int i, T v) { a[i] = v; });
-    load_span(aux + (size_t)lane0 * ssize, nl * ssize, [&](int i, T v) { b[i] = v; });
-    s_resp = r;
-    s_src = a;
-    s_aux = b;
-    s_lane = b + lanes * ssize;
-  }
-  const T* const s_bvec = s_resp + p.lh_gold;
+  for (int j = threadIdx.x; j < 3 * p.lh_gold - 1; j += blockDim.x) s_resp[j] = taps[j];
+  load_span(src + (size_t)lane0 * ssize, nl * ssize, [&](int i, T v) { s_src[i] = v; });
+  load_span(aux + (size_t)lane0 * ssize, nl * ssize, [&](int i, T v) { s_aux[i] = v; });
   __syncthreads();
 
   auto team = cg::tiled_partition<kTeam>(cg::this_thread_block());
@@ -527,23 +508,16 @@ search_kernel(const T* __restrict__ src, const T* __restrict__ aux,
 
 template <typename T>
 static cudaError_t launch(const void* src, const void* aux, const void* taps,
-                          void* frames, void* const* out, SearchParams p,
-                          int n, cudaStream_t st) {
+                          void* const* out, SearchParams p, int n,
+                          cudaStream_t st) {
   size_t smem = 0;
   p.lanes = plan_search(sizeof(T), p.ssize, p.size_ext, p.marg, p.lh_gold, smem);
-  if (p.lanes == 0 && frames == nullptr) return cudaErrorInvalidValue;
-  if (p.lanes == 0) {
-    search_kernel<T, true><<<n, kTeam, 0, st>>>(
-        (const T*)src, (const T*)aux, (const T*)taps, (T*)frames, (T*)out[0],
-        (T*)out[1], (T*)out[2], (T*)out[3], p, n);
-    return cudaGetLastError();
-  }
-  const cudaError_t e = allow_smem(search_kernel<T, false>, smem);
+  if (p.lanes == 0) return cudaErrorInvalidValue;
+  const cudaError_t e = allow_smem(search_kernel<T>, smem);
   if (e != cudaSuccess) return e;
-  search_kernel<T, false><<<(n + p.lanes - 1) / p.lanes, p.lanes * kTeam, smem,
-                            st>>>(
-      (const T*)src, (const T*)aux, (const T*)taps, (T*)frames, (T*)out[0],
-      (T*)out[1], (T*)out[2], (T*)out[3], p, n);
+  search_kernel<T><<<(n + p.lanes - 1) / p.lanes, p.lanes * kTeam, smem, st>>>(
+      (const T*)src, (const T*)aux, (const T*)taps, (T*)out[0], (T*)out[1],
+      (T*)out[2], (T*)out[3], p, n);
   return cudaGetLastError();
 }
 
@@ -551,28 +525,24 @@ static cudaError_t launch(const void* src, const void* aux, const void* taps,
 
 // The layout of a search at ssize bins, this shift, Gold reach lh_gold - 1
 // and Markov window: the lanes a block (8 at every default setting, fewer
-// as the frames grow), or 0 for one lane a block with its frames in the
-// global workspace, whose values a lane go to *ws_lane (0 otherwise; the
-// wrapper allocates n times that).
+// as the frames grow), 0 where not even one lane's frames fit a block's
+// shared memory (refused).
 extern "C" int npswf_search_layout(int dtype, int ssize, int shift,
-                                   int lh_gold, int aver_window,
-                                   long long* ws_lane) {
+                                   int lh_gold, int aver_window) {
   const size_t tsize = dtype == npswf::kFloat32 ? sizeof(float) : sizeof(double);
   const int size_ext = ssize + 2 * shift;
   const int marg = npswf::search_margin(lh_gold - 1, aver_window);
   size_t smem = 0;
-  const int lanes = npswf::plan_search(tsize, ssize, size_ext, marg, lh_gold, smem);
-  *ws_lane = lanes == 0 ? npswf::lane_stride(size_ext, marg) : 0;
-  return lanes;
+  return npswf::plan_search(tsize, ssize, size_ext, marg, lh_gold, smem);
 }
 
 // select_p = 0: the four operands, each [N, T]; select_p = P > 0: the
 // first P slots of their stable sort on negkey, each [N, P]. taps: resp
 // (lh_gold values) then bvec (2*lh_gold - 1), on the card in the working
-// type; frames: the workspace of npswf_search_layout, or null.
+// type.
 extern "C" int npswf_search(
     int dtype, const void* src, const void* aux, const void* taps,
-    void* frames, void* negkey, void* cent, void* posy, void* auxsel, int n,
+    void* negkey, void* cent, void* posy, void* auxsel, int n,
     int ssize, int shift, int kfit, int lh_gold, int posit, int aver_window,
     int iters, int aux_offset, int select_p, double m0, double m1, double det,
     double area, double specthres, void* stream) {
@@ -598,6 +568,6 @@ extern "C" int npswf_search(
   void* out[4] = {negkey, cent, posy, auxsel};
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(dtype == npswf::kFloat32
-                   ? npswf::launch<float>(src, aux, taps, frames, out, p, n, st)
-                   : npswf::launch<double>(src, aux, taps, frames, out, p, n, st));
+                   ? npswf::launch<float>(src, aux, taps, out, p, n, st)
+                   : npswf::launch<double>(src, aux, taps, out, p, n, st));
 }

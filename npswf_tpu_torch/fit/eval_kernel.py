@@ -182,16 +182,15 @@ def _ptrs(ts):
     return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
 
 
-def system_layout(P: int, K: int, dtype: torch.dtype) -> Tuple[int, int]:
-    """(layout, workspace bytes a lane) of K6 at P pulses over K fit bins
-    in ``dtype`` on the current card (csrc/eval.cu, plan_tile): 0 a tile
-    of lanes a block (every width to 61 at K = 90 on an H100), 1 one lane
-    a block with its sums through the outputs, 2 the same with its staged
-    arrays in a global workspace."""
-    region = ctypes.c_longlong(0)
-    layout = kernels.library().npswf_system_layout(
-        kernels.dtype_code(dtype), P, K, ctypes.byref(region))
-    return int(layout), int(region.value)
+def system_layout(P: int, K: int, dtype: torch.dtype) -> int:
+    """The layout of K6 at P pulses over K fit bins in ``dtype`` on the
+    current card (csrc/eval.cu, plan_tile): 0 a tile of lanes a block
+    (every width to 61 at K = 90 on an H100), 1 one lane a block with its
+    sums through the outputs, -1 past what one lane's staged arrays take of
+    a block's shared memory (from 3,337 pulses in fp64 and 6,380 in fp32 at
+    K = 90 on an H100), which the kernel refuses."""
+    return int(kernels.library().npswf_system_layout(
+        kernels.dtype_code(dtype), P, K))
 
 
 def fused_eval(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
@@ -267,8 +266,8 @@ def fused_system(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
                  param_mask: torch.Tensor):
     """coeffs_pad [N,4,SEG], x0 [N], y/w [N,K] (w = 1/sigma), u/lo/hi/
     p_seed/param_mask [N,M] -> (A [N,M,M], g [N,M], chi2 [N]). On the card:
-    one launch for any pulse count (system_layout), the outputs written in
-    place by the kernel."""
+    one launch for any pulse count whose lane fits a block (system_layout),
+    the outputs written in place by the kernel."""
     if not u.is_cuda:
         return fused_system_plain(cfg, coeffs_pad, x0, y, w, u, lo, hi,
                                   p_seed, param_mask)
@@ -279,6 +278,10 @@ def fused_system(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
     if M != 1 + 2 * P or P < 1:
         raise ValueError(f"fused_system kernel: M = {M} is not 1 + 2P, "
                          f"P >= 1")
+    if system_layout(P, K, dt) < 0:
+        raise ValueError(f"fused_system kernel: one lane's staged arrays at "
+                         f"{P} pulses over {K} fit bins in {dt} do not fit "
+                         f"a block's shared memory")
     kernels.require(coeffs_pad, "coeffs_pad", (N, 4, SEG), dt, dev)
     kernels.require(x0, "x0", (N,), dt, dev)
     u = u.contiguous()
@@ -291,13 +294,8 @@ def fused_system(cfg: NPSConfig, coeffs_pad: torch.Tensor, x0: torch.Tensor,
     if N == 0:
         return outs
     ins = (coeffs_pad, x0, y, w, u, lo, hi, p_seed, _mask_bytes(param_mask))
-    # one lane past a block's shared memory: its region of a workspace
-    region = system_layout(P, K, dt)[1]
-    ws = (torch.empty((N * region,), dtype=torch.uint8, device=dev)
-          if region else None)
     code = kernels.library().npswf_fused_system(
-        kernels.dtype_code(dt), P, _ptrs(ins), _ptrs(outs),
-        None if ws is None else ws.data_ptr(), N, K, y.stride(0),
+        kernels.dtype_code(dt), P, _ptrs(ins), _ptrs(outs), N, K, y.stride(0),
         w.stride(0), cfg.fit_lo_bin, float(cfg.spline_gate_lo),
         float(cfg.ntime - 1), kernels.stream_ptr(dev))
     kernels.check(code, kernels.FUSED_SYSTEM)

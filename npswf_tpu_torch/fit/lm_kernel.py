@@ -9,6 +9,7 @@ tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -21,21 +22,25 @@ from npswf_tpu_torch.fit.lm import CHOL_EPS, SAT_THRESH, lm_loop
 # Widths 1..LM_COMPILED_PULSES have an instantiation each (csrc/lm.cuh,
 # kMaxP: one row of the M x M system a thread of the 32-thread team); wider
 # ones run lm_wide.cu with P at run time, a block of 128 or 256 threads a
-# lane (lm_layout). 12 is the default pallas_lm_max_pulses.
+# lane, up to lm_max_pulses. 12 is the default pallas_lm_max_pulses.
 LM_COMPILED_PULSES = 15
 
 
-def lm_layout(P: int, K: int, dtype: torch.dtype) -> Tuple[int, int]:
-    """(layout, workspace values a lane) of K3 at P pulses over K fit bins
-    in ``dtype`` on the current card (csrc/lm_wide.cu, plan_wide): 0 the
-    lane whole in a block's shared memory (every compiled width, and the
-    wide ones to 77 pulses in fp64 and 112 in fp32 at K = 90 on an H100),
-    1 its system's two slots in a global workspace, 2 the whole lane
-    there."""
-    ws = ctypes.c_longlong(0)
-    layout = kernels.library().npswf_lm_layout(
-        kernels.dtype_code(dtype), P, K, ctypes.byref(ws))
-    return int(layout), int(ws.value)
+def lm_max_pulses(K: int, dtype: torch.dtype, device=None) -> int:
+    """The widest pulse count K3 takes over K fit bins at ``dtype`` on
+    ``device`` (default the current card): a wide lane's arrays must fit
+    one block's shared memory (csrc/lm_wide.cu; at K = 90 on an H100, 77
+    in fp64 and 112 in fp32). Asked of the card once a (card, dtype, K)."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _max_pulses(index, dtype, int(K))
+
+
+@functools.lru_cache(maxsize=None)
+def _max_pulses(index: int, dtype: torch.dtype, K: int) -> int:
+    with torch.cuda.device(index):
+        return int(kernels.library().npswf_lm_max_pulses(
+            kernels.dtype_code(dtype), K))
 
 
 def lm_solve_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
@@ -75,8 +80,12 @@ def lm_solve_kernel(cfg: NPSConfig, coeffs_pad: torch.Tensor,
     dev, dt = u0.device, u0.dtype
     K = y.shape[1]
     lib = kernels.library()
-    if M != 1 + 2 * P or P < 1:
-        raise ValueError(f"LM kernel: M = {M} is not 1 + 2P, P >= 1")
+    # widths above the compiled ones must fit a block (asked once a card)
+    if (M != 1 + 2 * P or P < 1 or (P > LM_COMPILED_PULSES
+                                    and P > lm_max_pulses(K, dt, dev))):
+        raise ValueError(f"LM kernel takes 1..{lm_max_pulses(K, dt, dev)} "
+                         f"pulses over {K} fit bins in {dt} (a lane's arrays "
+                         f"in one block's shared memory), not {P} (M = {M})")
     kernels.require(coeffs_pad, "coeffs_pad", (N, 4, SEG), dt, dev)
     kernels.require(x0, "x0", (N,), dt, dev)
     for name, t in (("u0", u0), ("lo", lo), ("hi", hi), ("p_seed", p_seed)):
@@ -105,14 +114,10 @@ def lm_solve_kernel(cfg: NPSConfig, coeffs_pad: torch.Tensor,
     lam = torch.empty((N,), dtype=dt, device=dev)
     if N == 0:
         return u, chi2, conv.bool(), n_iter, edm, lam
-    # a wide lane past a block's shared memory: its region of a workspace
-    ws_lane = lm_layout(P, K, dt)[1] if P > LM_COMPILED_PULSES else 0
-    ws = torch.empty((N * ws_lane,), dtype=dt, device=dev) if ws_lane else None
     ins = (coeffs_pad, x0, yt, wt, u0, lo, hi, p_seed, pmask, act, budget,
            lam0_t)
     outs = (u, chi2, conv, n_iter, edm, lam)
-    in_ptrs = (ctypes.c_void_p * (len(ins) + 1))(
-        *(t.data_ptr() for t in ins), None if ws is None else ws.data_ptr())
+    in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
     out_ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
     eps = float(torch.finfo(dt).eps)
     code = lib.npswf_lm_solve(

@@ -18,7 +18,6 @@ under a lock: the segment executor runs ``process_batch`` on two threads.
 from __future__ import annotations
 
 import collections
-import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -72,16 +71,15 @@ _P, _I, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_double)
 _SIGNATURES = {
     "npswf_matched_filter": [_I] + [_P] * 5 + [_I] * 6 + [_P],
-    "npswf_search": [_I] + [_P] * 8 + [_I] * 10 + [_D] * 5 + [_P],
-    "npswf_search_layout": [_I] * 5 + [_P],
-    "npswf_lm_layout": [_I] * 3 + [_P],
+    "npswf_search": [_I] + [_P] * 7 + [_I] * 10 + [_D] * 5 + [_P],
+    "npswf_search_layout": [_I] * 5,
+    "npswf_lm_max_pulses": [_I, _I],
     "npswf_lm_solve": [_I, _I, _P, _P] + [_I] * 4 + [_D] * 11 + [_P],
     "npswf_fused_eval": [_I] + [_P] * 9 + [_I] * 4 + [_D] * 2 + [_P],
     "npswf_fused_neq": [_I, _I, _P, _P, _I, _I] + [_L] * 3 + [_P],
-    "npswf_system_layout": [_I] * 3 + [_P],
-    "npswf_fused_system": [_I, _I, _P, _P, _P, _I, _I, _L, _L, _I]
-                          + [_D] * 2 + [_P],
-    "npswf_set_smem_limit": [_L],
+    "npswf_system_layout": [_I] * 3,
+    "npswf_fused_system": [_I, _I, _P, _P, _I, _I, _L, _L, _I] + [_D] * 2
+                          + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -175,23 +173,6 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
-
-
-@contextlib.contextmanager
-def smem_limit(nbytes: int):
-    """Plan every kernel's layout as if a block could take at most
-    ``nbytes`` of shared memory (every card of the process), then restore
-    the card's own limit. The layouts past each kernel's shared-memory limit
-    (K3's and K6's wide lanes, K2/K4's fewer lanes a block and global
-    frames) are otherwise reached only at widths whose plain versions run
-    for minutes; under a cap the card tests and chip_smoke reach them at
-    small widths. Not for concurrent use."""
-    lib = library()
-    lib.npswf_set_smem_limit(int(nbytes))
-    try:
-        yield
-    finally:
-        lib.npswf_set_smem_limit(0)
 
 
 def check(code: int, name: str) -> None:

@@ -8,10 +8,7 @@ CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
-from typing import Tuple
-
 import numpy as np
 import torch
 
@@ -21,21 +18,18 @@ from npswf_tpu_torch.ops.peak_search import (extension_fit, search_geometry,
                                              search_operands, search_topk)
 
 
-def search_layout(cfg: NPSConfig, T: int,
-                  dtype: torch.dtype) -> Tuple[int, int]:
-    """(lanes a block, workspace values a lane) of K2/K4 over T bins at
-    ``cfg``'s sigma and Markov window in ``dtype`` on the current card
-    (csrc/search.cu, plan_search): 8 lanes a block at every default
-    setting; fewer, one by one down to 1, as the frames that hold the Gold
-    reach and the window grow; 0 lanes (one a block) with its frames in a
-    global workspace of that many values a lane past what one lane's
-    frames take of a block's shared memory."""
+def search_layout(cfg: NPSConfig, T: int, dtype: torch.dtype) -> int:
+    """The lanes a block of K2/K4 over T bins at ``cfg``'s sigma and
+    Markov window in ``dtype`` on the current card (csrc/search.cu,
+    plan_search): 8 at every default setting; fewer, one by one down to 1,
+    as the frames that hold the Gold reach and the window grow; 0 past what
+    one lane's frames take of a block's shared memory, which the kernel
+    refuses (at T = 110 on an H100: sigma above 277 in fp64, 561 in fp32;
+    a window above 4,720 bins at sigma 2 in fp64, 9,560 in fp32)."""
     shift, _, _, _, lh_gold, _, _ = search_geometry(cfg, T)
-    ws = ctypes.c_longlong(0)
-    lanes = kernels.library().npswf_search_layout(
+    return int(kernels.library().npswf_search_layout(
         kernels.dtype_code(dtype), int(T), shift, lh_gold,
-        cfg.spec_aver_window, ctypes.byref(ws))
-    return int(lanes), int(ws.value)
+        cfg.spec_aver_window))
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,19 +59,22 @@ def _launch(cfg: NPSConfig, src: torch.Tensor, aux: torch.Tensor,
     shift, _, _, area, lh_gold, posit, _ = search_geometry(cfg, ssize)
     if ssize < 1 or cfg.spec_aver_window < 1:
         raise ValueError("search kernel needs T >= 1 and spec_aver_window >= 1")
+    if search_layout(cfg, ssize, dt) == 0:
+        raise ValueError(
+            f"search kernel: one lane's frames at T = {ssize}, spec_sigma = "
+            f"{cfg.spec_sigma} (lh_gold-1 = {lh_gold - 1}) and "
+            f"spec_aver_window = {cfg.spec_aver_window} in {dt} do not fit a "
+            f"block's shared memory")
     rows = select_p if select_p else ssize
     outs = [torch.empty((N, rows), dtype=dt, device=dev) for _ in range(4)]
     if N == 0:
         return tuple(outs)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     taps = _taps(float(cfg.spec_sigma), ssize, dt, torch.device("cuda", index))
-    _, ws_lane = search_layout(cfg, ssize, dt)
-    frames = (torch.empty((N * ws_lane,), dtype=dt, device=dev) if ws_lane
-              else None)
     kfit, m0, m1, det = extension_fit(cfg)
     code = kernels.library().npswf_search(
         kernels.dtype_code(dt), src.data_ptr(), aux.data_ptr(),
-        taps.data_ptr(), None if frames is None else frames.data_ptr(),
+        taps.data_ptr(),
         *(o.data_ptr() for o in outs), N, ssize, shift, kfit, lh_gold, posit,
         cfg.spec_aver_window, cfg.spec_decon_iterations, aux_offset, select_p,
         m0, m1, det, float(area), float(cfg.specthres),

@@ -21,7 +21,6 @@ from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
 from npswf_tpu_torch.engine.pipeline import process_batch
 from npswf_tpu_torch.utils.synthetic import make_events
-from chip_smoke import LAYOUTS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_SOURCES = sorted(pathlib.Path(REPO, "npswf_tpu_torch").rglob("*.py")) + [
@@ -251,14 +250,15 @@ def test_lm_kernel_wide_bit_equal_to_plain(card, dtype, P, n):
     n_iter and lambda equal on every lane. The widths put M = 1 + 2P on
     both sides of 32, 64 (the team's 128 threads, then 256) and 128, and
     the Gram owner blocks' ragged edge (M + 1 mod 4) through every value.
-    At the limit (the widest P whose lane fits a block's shared memory
-    whole, lm_layout 0) the call's iterations are cut to 4: the plain
-    version's substitutions take M^2 launches an iteration."""
-    from chip_smoke import lm_equal, lm_layout0_limit, lm_retry_inputs
-    from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel, lm_solve_plain
+    At the limit (the widest P whose lane fits a block, lm_max_pulses) the
+    call's iterations are cut to 4: the plain version's substitutions take
+    M^2 launches an iteration."""
+    from chip_smoke import lm_equal, lm_retry_inputs
+    from npswf_tpu_torch.fit.lm_kernel import (lm_max_pulses, lm_solve_kernel,
+                                               lm_solve_plain)
     cfg = NPSConfig(compute_dtype="float32")
     limit = P == "limit"
-    P = lm_layout0_limit(cfg.nfitbins, dtype) if limit else P
+    P = lm_max_pulses(cfg.nfitbins, dtype) if limit else P
     cfg = cfg.replace(maxwfpulses=P)
     cal = synthetic_calibration(cfg, seed=1)
     args = list(lm_retry_inputs(torch, cfg, cal, n, 8, P, 61 + n + P, dtype,
@@ -276,17 +276,13 @@ def test_lm_kernel_wide_bit_equal_to_plain(card, dtype, P, n):
 
 
 @pytest.mark.cuda
-def test_lm_layout_keeps_every_width(card):
-    """The wide unit keeps a lane whole in a block's shared memory (layout
-    0, PR 9's design) at every width it took so at K = 90 on an H100 (77
-    pulses in fp64, 112 in fp32), and moves its system to the workspace
-    (layout 1) only past them."""
-    from npswf_tpu_torch.fit.lm_kernel import lm_layout
+def test_lm_max_pulses_keeps_every_width(card):
+    """The wide unit takes at least the widths its first design took at
+    K = 90 on an H100 (71 pulses in fp64, 106 in fp32)."""
+    from npswf_tpu_torch.fit.lm_kernel import lm_max_pulses
     K = NPSConfig().nfitbins
-    for dtype, limit in ((torch.float64, 77), (torch.float32, 112)):
-        assert {lm_layout(P, K, dtype)[0] for P in range(1, limit + 1)} == {0}
-        layout, ws = lm_layout(limit + 1, K, dtype)
-        assert layout == 1 and ws > 0
+    assert lm_max_pulses(K, torch.float64) >= 71
+    assert lm_max_pulses(K, torch.float32) >= 106
 
 
 def _system_cases(n, P, max_pulses, dtype, dev):
@@ -340,60 +336,69 @@ def test_system_kernels_launch_once(card, P, max_pulses):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_kernels_take_widths_past_their_old_limits(card, dtype):
-    """K3 and K6 past the widths the card once refused: K3 above 77 pulses
-    in fp64 and 112 in fp32 at K = 90 (a lane's arrays past a block's
-    shared memory: layout 1, its system in the workspace), at P = 78 and 90
-    (fp64) or 113 and 120 (fp32) on retry-shaped calls cut to 4
-    iterations; K6 above 61 (one owner block a thread past 512 threads: one
-    lane a block), at 62, 84 and 90. Each launches its kernel and equals
-    its plain version on every lane."""
-    from chip_smoke import lm_equal, lm_retry_inputs, n_unequal
-    from npswf_tpu_torch.fit.eval_kernel import system_layout
-    from npswf_tpu_torch.fit.lm_kernel import (lm_layout, lm_solve_kernel,
-                                               lm_solve_plain)
-    base = NPSConfig(compute_dtype="float32")
-    cal = synthetic_calibration(base, seed=1)
-    K = base.nfitbins
-    for P in ((78, 90) if dtype == torch.float64 else (113, 120)):
-        cfg = base.replace(maxwfpulses=P)
-        args = list(lm_retry_inputs(torch, cfg, cal, 37, 8, P, 7 + P, dtype,
-                                    card))
-        args[10] = 4
-        assert lm_layout(P, K, dtype)[0] == 1
+def test_kernels_refuse_widths_they_do_not_take(card, dtype):
+    """K3 takes a width while one lane's arrays fit a block (lm_max_pulses:
+    77 in fp64 and 112 in fp32 at K = 90 on an H100; the JAX package's
+    Pallas LM stops at 61) and K6 while one lane's staged arrays fit a
+    block (system_layout): wider calls raise before any launch."""
+    from npswf_tpu_torch.fit.eval_kernel import (SEG, fused_system,
+                                                 system_layout)
+    from npswf_tpu_torch.fit.lm_kernel import lm_max_pulses, lm_solve_kernel
+    cfg = NPSConfig()
+    N, K = 2, cfg.nfitbins
+    limit = lm_max_pulses(K, dtype)
+    assert limit >= 61
+    # K6's first refused width, by bisection (its staged arrays grow with P;
+    # 3,337 in fp64 and 6,380 in fp32 at K = 90 on an H100)
+    lo, hi = 62, 8192
+    assert system_layout(lo, K, dtype) == 1 and system_layout(hi, K, dtype) < 0
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if system_layout(mid, K, dtype) >= 0 else (lo, mid)
+    assert hi > 1000
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=card)
+    for P, run in ((limit + 1, "lm"), (hi, "system")):
+        M = 1 + 2 * P
+        mask = torch.ones((N, M), dtype=torch.bool, device=card)
+        args = (z(N, 4, SEG), z(N), z(N, K), z(N, K), z(N, M), z(N, M),
+                z(N, M), z(N, M), mask)
         kernels.reset_counts()
-        k = lm_solve_kernel(cfg, *args)
-        p = lm_solve_plain(cfg, *args)
-        torch.cuda.synchronize()
-        assert kernels.launches[kernels.LM_SOLVE] == 1
-        assert lm_equal(torch, k, p) == 37, P
-    for P in (62, 84, 90):
-        assert system_layout(P, K, dtype)[0] == 1
-        for _, run_k, run_p in _system_cases(33, P, 8, dtype, card):
-            kernels.reset_counts()
-            k, p = run_k(), run_p()
-            torch.cuda.synchronize()
-            assert kernels.launches[kernels.FUSED_SYSTEM] == 1
-            assert [n_unequal(torch, x, y) for x, y in zip(k, p)] == [0] * 3
+        with pytest.raises(ValueError, match=(f"1..{limit} pulses"
+                                              if run == "lm" else "do not fit")):
+            if run == "lm":
+                lm_solve_kernel(cfg, *args, mask[:, 0], 10, 1e-3)
+            else:
+                fused_system(cfg, *args)
+        assert not kernels.launches
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 37])
-@pytest.mark.parametrize("kernel,P,layout", LAYOUTS, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_layouts_past_shared_memory_bit_equal_to_plain(card, dtype, kernel,
-                                                       P, layout, n):
-    """Each kernel's layouts past what a block's shared memory holds
-    (chip_smoke.LAYOUTS: K3's system or whole lane in the workspace, K6
-    one lane a block or in the workspace, K2/K4 with fewer lanes a block
-    or frames in the workspace), reached at small widths under a cap on
-    the shared memory: the kernel launches once and equals its plain
-    version on every lane (K3: u, chi2, conv, n_iter, lambda; K6: A, g,
-    chi2; K2/K4: all four outputs)."""
-    from chip_smoke import check_layout
-    _, ndiff, n_launch = check_layout(torch, kernel, P, layout, dtype, card, n)
-    assert n_launch == 1
-    assert (ndiff == 0) if kernel == "lm" else not any(ndiff)
+def test_system_kernel_without_fit_bins_writes_zeros(card, dtype):
+    """K6 with no fit bins (K = 0), in a tile (P = 12) and one lane a block
+    (P = 62, past the 61 pulses a tile of one lane holds): one launch, A,
+    g and chi2 zero and equal to the plain version's."""
+    from chip_smoke import n_unequal, system_inputs
+    from npswf_tpu_torch.fit.eval_kernel import (fused_system,
+                                                 fused_system_plain,
+                                                 system_layout)
+    cfg = NPSConfig(compute_dtype="float32")
+    cal = synthetic_calibration(cfg, seed=1)
+    fit = cfg.replace(fit_hi_bin=cfg.fit_lo_bin)  # an empty fit window
+    for P in (12, 62):
+        assert system_layout(P, 0, dtype) == (0 if P <= 61 else 1)
+        args, _ = system_inputs(torch, cfg, cal, 33, P, 8, 7 + P, dtype, card)
+        args = list(args)
+        args[2], args[3] = args[2][:, :0], args[3][:, :0]
+        kernels.reset_counts()
+        k = fused_system(fit, *args)
+        p = fused_system_plain(fit, *args)
+        torch.cuda.synchronize()
+        assert kernels.launches[kernels.FUSED_SYSTEM] == 1
+        assert [n_unequal(torch, x, y) for x, y in zip(k, p)] == [0] * 3
+        assert not any(bool(x.any()) for x in k)
 
 
 def test_fp32_division_through_fp64_reciprocal():
@@ -541,10 +546,37 @@ def test_search_kernel_past_its_old_reach_bit_equal_to_plain(card, dtype,
         assert n_lanes < 8
     else:
         cfg = base.replace(spec_sigma=past[0], spec_aver_window=past[1])
-        assert search_layout(cfg, src.shape[1], dtype)[0] >= 1
+        assert search_layout(cfg, src.shape[1], dtype) >= 1
     for P in (0, 12):
         kernels.reset_counts()
         ndiff, _, p = search_pair_equal(torch, cfg, src, aux, P)
         assert sum(kernels.launches.values()) == 1
         assert int(torch.isfinite(p[0]).sum()) > 0
         assert ndiff == [0] * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_search_kernel_refuses_past_its_reach(card, dtype):
+    """Past what one lane's frames take of a block's shared memory
+    (search_layout 0: at T = 110 on an H100, sigma above 277 in fp64 and
+    561 in fp32), both wrappers raise before any launch."""
+    from npswf_tpu_torch.ops.search_kernel import (search_layout,
+                                                   search_operands_kernel,
+                                                   search_topk_kernel)
+    T = 110
+    lo, hi = 2.0, 2000.0
+    assert search_layout(NPSConfig(spec_sigma=hi), T, dtype) == 0
+    for _ in range(40):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if search_layout(NPSConfig(spec_sigma=mid), T,
+                                            dtype) else (lo, mid)
+    assert lo > 200
+    cfg = NPSConfig(spec_sigma=hi)
+    src = torch.zeros((4, T), dtype=dtype, device=card)
+    kernels.reset_counts()
+    with pytest.raises(ValueError, match="do not fit"):
+        search_operands_kernel(cfg, src, src, -1)
+    with pytest.raises(ValueError, match="do not fit"):
+        search_topk_kernel(cfg, src, src, -1, 4)
+    assert not kernels.launches

@@ -2,14 +2,15 @@
 past each width or search setting the card once refused, on the CPU at
 fp64.
 
-On the card K3 took at most 77 pulses in fp64 (112 in fp32) at K = 90 fit
-bins, K6 at most 61, and K2/K4 at most 127 Gold taps past the first
-(spec_sigma 19.06) and frames that eight lanes fit a block's shared
-memory. Each kernel now takes a layout of its own past those limits and is
-held bit-equal to its plain version on the card
-(tests/test_torch_package.py, chip_smoke.py); here the plain versions (the
-wrappers on CPU tensors) meet the JAX package on a few lanes of seeded
-inputs made with numpy:
+On the card K3 takes at most 77 pulses in fp64 (112 in fp32) at K = 90 fit
+bins, as a lane's arrays must fit a block's shared memory (the JAX
+package's Pallas LM stops at 61). K6 took at most 61 and K2/K4 at most 127
+Gold taps past the first (spec_sigma 19.06) and frames that eight lanes fit
+a block's shared memory; those two now take one lane a block, or fewer
+lanes a block, past those limits and are held bit-equal to their plain
+versions on the card (tests/test_torch_package.py, chip_smoke.py). Here the
+plain versions (the wrappers on CPU tensors) meet the JAX package on a few
+lanes of seeded inputs made with numpy:
 
 - K6 at P = 62 against the JAX package's XLA system (``eval_and_jac``,
   then the normal equations as ``einsum``s): its Pallas ``fused_system``
@@ -18,7 +19,7 @@ inputs made with numpy:
   eagerly (``jax.disable_jit``: its compile at M = 157 takes two
   minutes): its Pallas ``lm_solve_pallas`` packs u and five scalars in 128
   output rows, so it takes M + 5 <= 128 (P <= 61) and raises at this
-  width;
+  width, as the port's K3 does past 77;
 - K2 and K4 at sigma 19.5 (lh_gold - 1 = 130) and at sigma 27 with the
   widest window (487 = size_ext - 1) against the JAX Pallas search in
   interpret mode, and at sigma 60, where the left extension's fit (2 sigma
@@ -90,7 +91,7 @@ def test_fused_system_past_the_card_width_matches_jax(cfg, cal):
 
 
 def test_lm_stage_past_the_card_width_matches_jax(cfg, cal):
-    """The LM stage at P = 78 (the card's first refused width in fp64) on
+    """The LM stage at P = 78 (K3's first refused width in fp64) on
     3 lanes of up to 6 pulses, 4 iterations, lambda0 per lane: u, chi2,
     conv, n_iter and lambda at tests/test_pallas_lm.py's tolerances, every
     decision exact."""
