@@ -161,8 +161,12 @@ KERNELS = {   # name -> (source, the TPU kernel it replaces)
     "fused_system": ("npswf_tpu_torch/csrc/eval.cu",
                      "npswf_tpu/fit/pallas_eval.py:171"),
 }
-# the routes of process_batch (flags in npswf_tpu_torch/trace.py): kernels
-# that must launch, kernels that must not
+# the routes of process_batch: the configuration flags of each, and the
+# kernels that must launch and those that must not
+SLICE = dict(use_pallas_lm=False, pallas_search_select=True)
+ROUTE_FLAGS = {"default": {}, "slice": SLICE,
+               "fused_neq": dict(SLICE, use_fused_neq=True),
+               "fused_system": dict(SLICE, use_fused_system=True)}
 ROUTES = {
     "default": (("matched_filter", "search_operands", "lm_solve"),
                 ("search_topk", "fused_eval", "fused_neq", "fused_system")),
@@ -1007,7 +1011,6 @@ def check_buckets(torch, dev, card):
     each of BUCKET_CONFIGS, on the default route (K3) and on
     use_fused_system (K6; its LM budgets cut as WIDE_PATH_BUDGETS), each
     through check_bucket_run."""
-    from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
     base, calib, batch = pileup_batch(torch, dev)
     summary = []
     for changes, widths in BUCKET_CONFIGS:
@@ -1583,7 +1586,6 @@ def check_path_widths(torch, dev, card, ref24, limits):
     widths hold no other lanes, tests/test_torch_pipeline_widths.py); the
     route's kernel launched on every bucket, no plain call. ref24: the
     fp32 default route's width-24 output, already run."""
-    from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
     summary = {}
     refs = {("default", "float32"): ref24}
     for route, dname, P in WIDE_PATHS:
@@ -1744,7 +1746,6 @@ def check_search_wide(torch, cfg, cal, calib, truth, batch, dev, card):
     from npswf_tpu_torch.ops.matched_filter import matched_filter
     from npswf_tpu_torch.ops.peak_search import tspectrum_search
     from npswf_tpu_torch.ops.search_kernel import search_layout
-    from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
     lanes = mf_lanes(torch, cal, truth.signal, dev)
     src = matched_filter(cfg, *lanes).to(torch.float32).to(torch.float64)
     aux = lanes[0]
@@ -2246,7 +2247,6 @@ def run(torch) -> int:
     from npswf_tpu_torch.core.config import NPSConfig
     from npswf_tpu_torch.core.params import calib_to_torch
     from npswf_tpu_torch.ops.matched_filter import matched_filter
-    from npswf_tpu_torch.trace import ROUTES as ROUTE_FLAGS
 
     # ---- 1. device ----------------------------------------------------
     dev = torch.device("cuda", 0)

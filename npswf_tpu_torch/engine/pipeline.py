@@ -32,6 +32,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from npswf_tpu_torch import kernels
 from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch.engine.diagnostics import block_diagnostics
 from npswf_tpu_torch.fit.errors import error_model
@@ -39,6 +40,7 @@ from npswf_tpu_torch.fit.lm import FitInputs, fit_waveforms
 from npswf_tpu_torch.ops.cluster_gate import cluster_gate
 from npswf_tpu_torch.ops.peak_search import find_pulses
 from npswf_tpu_torch.parallel.axis import Axis, require_axis
+from npswf_tpu_torch.utils.timers import span
 
 
 class EventBatch(NamedTuple):
@@ -86,7 +88,8 @@ class PipelineOutput(NamedTuple):
 
 def _front(mask: torch.Tensor) -> torch.Tensor:
     """Lane order with the masked lanes first, each group in index order
-    (a stable argsort of ~mask)."""
+    (a stable argsort of ~mask); each ``nonzero`` is a host sync."""
+    kernels.count("sync.engine.front_select", 2)
     return torch.cat([torch.nonzero(mask).squeeze(1),
                       torch.nonzero(~mask).squeeze(1)])
 
@@ -115,207 +118,228 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
     of the group, in one device's order), and the five counters are
     summed over every axis of ``reduce_axes``. Capacities act per shard,
     on the local lanes, as in the JAX package.
+
+    The call is the span ``engine.process_batch`` (``utils.timers.span``)
+    around ``engine.search``, ``engine.gate``, one ``engine.bucket`` a
+    pulse-count bucket (its fit ladder inside), ``engine.resolve`` and
+    ``engine.diagnostics``; ``kernels.counts`` takes the call, each host
+    sync by its site and the lanes each bucket fits.
     """
     if block_axis is not None or block_shards > 1:
         require_axis(block_axis, f"process_batch over {block_shards} block "
                                  f"shard(s): block_axis")
     for ax in reduce_axes:
         require_axis(ax, "each of process_batch's reduce_axes")
-    signal = batch.signal
-    E, B, T = signal.shape
-    P = cfg.maxwfpulses
-    dtype, dev = signal.dtype, signal.device
-    N = E * B
+    kernels.count("engine.process_batch")
+    with span("engine.process_batch"):
+        signal = batch.signal
+        E, B, T = signal.shape
+        P = cfg.maxwfpulses
+        dtype, dev = signal.dtype, signal.device
+        N = E * B
 
-    preswf = calib["preswf"]
-    timeref = calib["timeref"].to(dtype)
-    cortime = calib["cortime"].to(dtype)
-    timerefacc = torch.as_tensor(calib["timerefacc"], dtype=dtype, device=dev)
-    coeffs = calib["spline_coeffs"].to(dtype)
-    x0 = calib["spline_x0"].to(dtype)
-    kern = calib["mfkern_rev"].to(dtype)
-    mfint = calib["mfint"].to(dtype)
+        preswf = calib["preswf"]
+        timeref = calib["timeref"].to(dtype)
+        cortime = calib["cortime"].to(dtype)
+        timerefacc = torch.as_tensor(calib["timerefacc"], dtype=dtype, device=dev)
+        coeffs = calib["spline_coeffs"].to(dtype)
+        x0 = calib["spline_x0"].to(dtype)
+        kern = calib["mfkern_rev"].to(dtype)
+        mfint = calib["mfint"].to(dtype)
 
-    present = batch.pres.to(torch.bool) & preswf[None, :]       # [E, B]
-    flat_sig = signal.reshape(N, T)
-    flat_present = present.reshape(N)
-    if batch.minsignal is not None:
-        minsignal = batch.minsignal.to(dtype).reshape(N)
-    else:
-        minsignal = flat_sig.amin(dim=1)
-    kern_flat = kern[None].expand(E, B, cfg.mfwidth).reshape(N, -1)
-    mfint_flat = mfint[None].expand(E, B).reshape(N)
-
-    # ---- peak search (optionally on the present lanes only) ----------
-    cap_s = min(cfg.search_capacity, N) if cfg.search_capacity > 0 else 0
-    n_search_dropped = torch.zeros((), dtype=torch.int32, device=dev)
-    search_overflow = torch.zeros((N,), dtype=torch.bool, device=dev)
-    if 0 < cap_s < N:
-        sel_s = _front(flat_present)[:cap_s]
-        ps_c = find_pulses(cfg, flat_sig[sel_s], minsignal[sel_s],
-                           kern_flat[sel_s], mfint_flat[sel_s],
-                           flat_present[sel_s], plain=plain)
-        pos_s = _slot(flat_present)
-        searched = flat_present & (pos_s < cap_s)
-        posc_s = torch.clamp(pos_s, max=cap_s - 1)
-        npulse = torch.where(searched, ps_c.npulse[posc_s], 0).to(torch.int32)
-        seed_t_abs = torch.where(searched[:, None], ps_c.times[posc_s], 0.0)
-        seed_a = torch.where(searched[:, None], ps_c.amps[posc_s], 0.0)
-        pulse_mask = ps_c.valid[posc_s] & searched[:, None]
-        search_overflow = flat_present & ~searched
-        n_search_dropped = search_overflow.sum().to(torch.int32)
-    else:
-        ps = find_pulses(cfg, flat_sig, minsignal, kern_flat, mfint_flat,
-                         flat_present, plain=plain)
-        npulse, seed_t_abs, seed_a, pulse_mask = (ps.npulse, ps.times,
-                                                  ps.amps, ps.valid)
-
-    # ---- cluster gate ------------------------------------------------
-    gate = cluster_gate(cfg, signal, timeref, timerefacc, block_axis,
-                        block_shards).reshape(N)
-    fit_active = flat_present & gate & (npulse > 0)
-
-    # ---- pulse-count buckets: narrow (<= fit_small_pulses), middle
-    #      (<= fit_mid_pulses) and wide parameter vectors ---------------
-    M = 1 + 2 * P
-    Ps = max(1, min(cfg.fit_small_pulses, P))
-    cap_all = min(cfg.fit_capacity if cfg.fit_capacity > 0 else N, N)
-    small_active = fit_active & (npulse <= Ps)
-    big_active = fit_active & (npulse > Ps)
-    blocks_flat = torch.arange(B, device=dev).repeat(E)
-    ped_seed_all = flat_sig[:, :cfg.ped_nsamples].mean(dim=1)   # ref :672-676
-
-    params = torch.zeros((N, M), dtype=dtype, device=dev)
-    chi2_ndf = torch.zeros((N,), dtype=dtype, device=dev)
-    converged = torch.zeros((N,), dtype=torch.bool, device=dev)
-    n_iter_lanes = torch.zeros((N,), dtype=torch.int32, device=dev)
-    fitted = torch.zeros((N,), dtype=torch.bool, device=dev)
-    n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
-    buckets = [(small_active, cap_all, Ps)]
-    if P > Ps:
-        # fit_capacity == 0 means "fit every block": the wide bucket is
-        # uncapped too
-        cap_big = N if cfg.fit_capacity <= 0 else max(
-            min(N, 256), cap_all // max(cfg.fit_big_frac, 1))
-        Pm = min(cfg.fit_mid_pulses, P)
-        if Pm > Ps:
-            mid_active = big_active & (npulse <= Pm)
-            big_active = big_active & (npulse > Pm)
-            buckets.append((mid_active, cap_big, Pm))
-        buckets.append((big_active, cap_big, P))
-    model_name = ("spline_ref_pallas" if cfg.model_name == "spline_ref"
-                  else cfg.model_name)
-    for mask, cap_b, Pb in buckets:
-        n_mask = int(mask.sum())      # host sync: an empty bucket costs nothing
-        n_dropped = n_dropped + max(n_mask - cap_b, 0)
-        if n_mask == 0:
-            continue
-        # capacity covers every lane: fit in place, the bucket mask as
-        # `active` (no compaction permutation); else the first cap_b lanes
-        in_place = cap_b >= N
-        lanes = slice(None) if in_place else _front(mask)[:cap_b]
-        sel_sig = flat_sig[lanes]
-        sel_blocks = blocks_flat[lanes]
-        sel_err = error_model(cfg, sel_sig)
-        inp = FitInputs(
-            y=sel_sig[:, cfg.fit_lo_bin:cfg.fit_hi_bin],
-            sigma=sel_err[:, cfg.fit_lo_bin:cfg.fit_hi_bin],
-            coeffs=coeffs[sel_blocks], x0=x0[sel_blocks],
-            t_seed=seed_t_abs[lanes][:, :Pb] - timeref[sel_blocks][:, None],
-            a_seed=seed_a[lanes][:, :Pb],
-            ped_seed=ped_seed_all[lanes],
-            pulse_mask=pulse_mask[lanes][:, :Pb],
-            active=mask[lanes],
-            timeref=timeref[sel_blocks])
-        fres = fit_waveforms(cfg, inp, model_name, plain=plain)
-        pf = torch.cat([fres.params,
-                        torch.zeros((fres.params.shape[0], 2 * (P - Pb)),
-                                    dtype=dtype, device=dev)], dim=1)
-        if in_place:
-            infit = mask
-            posc = slice(None)
+        present = batch.pres.to(torch.bool) & preswf[None, :]       # [E, B]
+        flat_sig = signal.reshape(N, T)
+        flat_present = present.reshape(N)
+        if batch.minsignal is not None:
+            minsignal = batch.minsignal.to(dtype).reshape(N)
         else:
-            # un-permute by gather: lane i sits at _slot(mask)[i]
-            pos = _slot(mask)
-            infit = mask & (pos < cap_b)
-            posc = torch.clamp(pos, max=cap_b - 1)
-        params = torch.where(infit[:, None], pf[posc], params)
-        chi2_ndf = torch.where(infit, fres.chi2_ndf[posc], chi2_ndf)
-        converged = converged | (fres.converged[posc] & infit)
-        n_iter_lanes = torch.where(infit, fres.n_iter[posc], n_iter_lanes)
-        fitted = fitted | infit
+            minsignal = flat_sig.amin(dim=1)
+        kern_flat = kern[None].expand(E, B, cfg.mfwidth).reshape(N, -1)
+        mfint_flat = mfint[None].expand(E, B).reshape(N)
 
-    # ---- output-path resolution --------------------------------------
-    cortime_b = cortime[blocks_flat]
-    corr = batch.corr_time_HMS.to(dtype).repeat_interleave(B)   # [N]
-    t_param = params[:, 1::2]                                   # [N, P] rel bins
-    a_param = params[:, 2::2]
-    seed_t_rel = seed_t_abs - timeref[blocks_flat][:, None]
-    t_rel = torch.where(fitted[:, None], t_param, seed_t_rel)
-    a_fin = torch.where((fitted & converged)[:, None], a_param, seed_a)
-    pedwf = torch.where(fitted, params[:, 0], ped_seed_all)
+        # ---- peak search (optionally on the present lanes only) ----------
+        with span("engine.search"):
+            cap_s = min(cfg.search_capacity, N) if cfg.search_capacity > 0 else 0
+            n_search_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+            search_overflow = torch.zeros((N,), dtype=torch.bool, device=dev)
+            if 0 < cap_s < N:
+                sel_s = _front(flat_present)[:cap_s]
+                ps_c = find_pulses(cfg, flat_sig[sel_s], minsignal[sel_s],
+                                   kern_flat[sel_s], mfint_flat[sel_s],
+                                   flat_present[sel_s], plain=plain)
+                pos_s = _slot(flat_present)
+                searched = flat_present & (pos_s < cap_s)
+                posc_s = torch.clamp(pos_s, max=cap_s - 1)
+                npulse = torch.where(searched, ps_c.npulse[posc_s],
+                                     0).to(torch.int32)
+                seed_t_abs = torch.where(searched[:, None], ps_c.times[posc_s],
+                                         0.0)
+                seed_a = torch.where(searched[:, None], ps_c.amps[posc_s], 0.0)
+                pulse_mask = ps_c.valid[posc_s] & searched[:, None]
+                search_overflow = flat_present & ~searched
+                n_search_dropped = search_overflow.sum().to(torch.int32)
+            else:
+                ps = find_pulses(cfg, flat_sig, minsignal, kern_flat, mfint_flat,
+                                 flat_present, plain=plain)
+                npulse, seed_t_abs, seed_a, pulse_mask = (ps.npulse, ps.times,
+                                                          ps.amps, ps.valid)
 
-    conv_term = (corr - cortime_b - timerefacc * cfg.dt)[:, None]
-    t_ns = t_rel * cfg.dt + conv_term                           # ref :782-785
-    # gate-fail lanes keep raw bin-unit times; slots beyond npulse are zero
-    wftime = torch.where(pulse_mask,
-                         torch.where(fitted[:, None], t_ns, seed_t_abs), 0.0)
-    wfampl = torch.where(pulse_mask, a_fin, 0.0)
-    chi2 = torch.where(fitted & converged, chi2_ndf, -100.0)
+        # ---- cluster gate ------------------------------------------------
+        with span("engine.gate"):
+            gate = cluster_gate(cfg, signal, timeref, timerefacc, block_axis,
+                                block_shards).reshape(N)
+            fit_active = flat_present & gate & (npulse > 0)
 
-    # timewf/amplwf: |time| closest to zero among valid pulses, first on tie
-    abs_t = torch.where(pulse_mask, torch.abs(wftime), float("inf"))
-    best = torch.argmin(abs_t, dim=1, keepdim=True)
-    has = fitted & (npulse > 0)
-    timewf = torch.where(has, torch.gather(wftime, 1, best)[:, 0], -100.0)
-    amplwf = torch.where(has, torch.gather(wfampl, 1, best)[:, 0], -100.0)
+        # ---- pulse-count buckets: narrow (<= fit_small_pulses), middle
+        #      (<= fit_mid_pulses) and wide parameter vectors ---------------
+        M = 1 + 2 * P
+        Ps = max(1, min(cfg.fit_small_pulses, P))
+        cap_all = min(cfg.fit_capacity if cfg.fit_capacity > 0 else N, N)
+        small_active = fit_active & (npulse <= Ps)
+        big_active = fit_active & (npulse > Ps)
+        blocks_flat = torch.arange(B, device=dev).repeat(E)
+        ped_seed_all = flat_sig[:, :cfg.ped_nsamples].mean(dim=1)   # ref :672-676
 
-    # h1/h2 entries (ref :988-997): gate-passed lanes, final amplitude > 20
-    h_mask = fitted[:, None] & pulse_mask & (wfampl > cfg.amp_h12_thres)
-    h1 = t_rel - timerefacc + corr[:, None] / cfg.dt            # ref :994
+        params = torch.zeros((N, M), dtype=dtype, device=dev)
+        chi2_ndf = torch.zeros((N,), dtype=dtype, device=dev)
+        converged = torch.zeros((N,), dtype=torch.bool, device=dev)
+        n_iter_lanes = torch.zeros((N,), dtype=torch.int32, device=dev)
+        fitted = torch.zeros((N,), dtype=torch.bool, device=dev)
+        n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        buckets = [(small_active, cap_all, Ps)]
+        if P > Ps:
+            # fit_capacity == 0 means "fit every block": the wide bucket is
+            # uncapped too
+            cap_big = N if cfg.fit_capacity <= 0 else max(
+                min(N, 256), cap_all // max(cfg.fit_big_frac, 1))
+            Pm = min(cfg.fit_mid_pulses, P)
+            if Pm > Ps:
+                mid_active = big_active & (npulse <= Pm)
+                big_active = big_active & (npulse > Pm)
+                buckets.append((mid_active, cap_big, Pm))
+            buckets.append((big_active, cap_big, P))
+        model_name = ("spline_ref_pallas" if cfg.model_name == "spline_ref"
+                      else cfg.model_name)
+        for mask, cap_b, Pb in buckets:
+            with span("engine.bucket"):
+                # host sync: an empty bucket costs nothing
+                n_mask = int(mask.sum())
+                kernels.count("sync.engine.bucket_size")
+                n_dropped = n_dropped + max(n_mask - cap_b, 0)
+                if n_mask == 0:
+                    continue
+                kernels.count("fit.stage1_lanes", min(n_mask, cap_b))
+                # capacity covers every lane: fit in place, the bucket mask as
+                # `active` (no compaction permutation); else the first cap_b lanes
+                in_place = cap_b >= N
+                lanes = slice(None) if in_place else _front(mask)[:cap_b]
+                sel_sig = flat_sig[lanes]
+                sel_blocks = blocks_flat[lanes]
+                sel_err = error_model(cfg, sel_sig)
+                inp = FitInputs(
+                    y=sel_sig[:, cfg.fit_lo_bin:cfg.fit_hi_bin],
+                    sigma=sel_err[:, cfg.fit_lo_bin:cfg.fit_hi_bin],
+                    coeffs=coeffs[sel_blocks], x0=x0[sel_blocks],
+                    t_seed=seed_t_abs[lanes][:, :Pb] - timeref[sel_blocks][:, None],
+                    a_seed=seed_a[lanes][:, :Pb],
+                    ped_seed=ped_seed_all[lanes],
+                    pulse_mask=pulse_mask[lanes][:, :Pb],
+                    active=mask[lanes],
+                    timeref=timeref[sel_blocks])
+                fres = fit_waveforms(cfg, inp, model_name, plain=plain)
+                pf = torch.cat([fres.params,
+                                torch.zeros((fres.params.shape[0], 2 * (P - Pb)),
+                                            dtype=dtype, device=dev)], dim=1)
+                if in_place:
+                    infit = mask
+                    posc = slice(None)
+                else:
+                    # un-permute by gather: lane i sits at _slot(mask)[i]
+                    pos = _slot(mask)
+                    infit = mask & (pos < cap_b)
+                    posc = torch.clamp(pos, max=cap_b - 1)
+                params = torch.where(infit[:, None], pf[posc], params)
+                chi2_ndf = torch.where(infit, fres.chi2_ndf[posc], chi2_ndf)
+                converged = converged | (fres.converged[posc] & infit)
+                n_iter_lanes = torch.where(infit, fres.n_iter[posc], n_iter_lanes)
+                fitted = fitted | infit
 
-    diag = block_diagnostics(cfg, signal)
-    enertot, integtot = diag["enertot"], diag["integtot"]
-    if block_axis is not None:
-        # event totals span every block: the row shards' per-block values,
-        # gathered in block order and summed as one device sums them
-        enertot, integtot = (
-            torch.cat(block_axis.all_gather(diag[k]), dim=-1).sum(dim=-1)
-            for k in ("ener_raw", "integ"))
-    n_succ = (fitted & converged).sum().to(torch.int32)
-    n_fail = (fitted & ~converged).sum().to(torch.int32)
-    n_high = (flat_present & (npulse > P - 2)).sum().to(torch.int32)
-    if reduce_axes:
-        counts = torch.stack([n_succ, n_fail, n_dropped.to(torch.int32),
-                              n_high, n_search_dropped])
-        for ax in reduce_axes:
-            counts = ax.all_reduce(counts)
-        n_succ, n_fail, n_dropped, n_high, n_search_dropped = counts.unbind()
+        # ---- output-path resolution --------------------------------------
+        with span("engine.resolve"):
+            cortime_b = cortime[blocks_flat]
+            corr = batch.corr_time_HMS.to(dtype).repeat_interleave(B)   # [N]
+            t_param = params[:, 1::2]                       # [N, P] rel bins
+            a_param = params[:, 2::2]
+            seed_t_rel = seed_t_abs - timeref[blocks_flat][:, None]
+            t_rel = torch.where(fitted[:, None], t_param, seed_t_rel)
+            a_fin = torch.where((fitted & converged)[:, None], a_param, seed_a)
+            pedwf = torch.where(fitted, params[:, 0], ped_seed_all)
 
-    return PipelineOutput(
-        wfnpulse=npulse.reshape(E, B),
-        wftime=wftime.reshape(E, B, P),
-        wfampl=wfampl.reshape(E, B, P),
-        pulse_valid=pulse_mask.reshape(E, B, P),
-        chi2=chi2.reshape(E, B),
-        timewf=timewf.reshape(E, B),
-        amplwf=amplwf.reshape(E, B),
-        pedwf=pedwf.reshape(E, B),
-        gate=gate.reshape(E, B),
-        fit_converged=(fitted & converged).reshape(E, B),
-        fit_n_iter=torch.where(fitted, n_iter_lanes, 0).reshape(E, B),
-        h1time=h1.reshape(E, B, P),
-        h2time=wftime.reshape(E, B, P),
-        h_mask=h_mask.reshape(E, B, P),
-        ampl=diag["ampl"], ener=diag["ener"], integ=diag["integ"],
-        bkg=diag["bkg"], noise=diag["noise"],
-        enertot=enertot, integtot=integtot,
-        n_fit_success=n_succ,
-        n_fit_failure=n_fail,
-        n_fit_dropped=n_dropped,
-        n_high_pulse=n_high,
-        n_search_dropped=n_search_dropped,
-        search_overflow=search_overflow.reshape(E, B))
+            conv_term = (corr - cortime_b - timerefacc * cfg.dt)[:, None]
+            t_ns = t_rel * cfg.dt + conv_term               # ref :782-785
+            # gate-fail lanes keep raw bin-unit times; slots beyond npulse are zero
+            wftime = torch.where(
+                pulse_mask, torch.where(fitted[:, None], t_ns, seed_t_abs), 0.0)
+            wfampl = torch.where(pulse_mask, a_fin, 0.0)
+            chi2 = torch.where(fitted & converged, chi2_ndf, -100.0)
+
+            # timewf/amplwf: |time| closest to zero among valid pulses, first
+            # on tie
+            abs_t = torch.where(pulse_mask, torch.abs(wftime), float("inf"))
+            best = torch.argmin(abs_t, dim=1, keepdim=True)
+            has = fitted & (npulse > 0)
+            timewf = torch.where(has, torch.gather(wftime, 1, best)[:, 0], -100.0)
+            amplwf = torch.where(has, torch.gather(wfampl, 1, best)[:, 0], -100.0)
+
+            # h1/h2 entries (ref :988-997): gate-passed lanes, final amplitude > 20
+            h_mask = fitted[:, None] & pulse_mask & (wfampl > cfg.amp_h12_thres)
+            h1 = t_rel - timerefacc + corr[:, None] / cfg.dt            # ref :994
+
+        with span("engine.diagnostics"):
+            # block_diagnostics reads its window's width back (a host sync)
+            kernels.count("sync.engine.diagnostics_window")
+            diag = block_diagnostics(cfg, signal)
+            enertot, integtot = diag["enertot"], diag["integtot"]
+            if block_axis is not None:
+                # event totals span every block: the row shards' per-block values,
+                # gathered in block order and summed as one device sums them
+                enertot, integtot = (
+                    torch.cat(block_axis.all_gather(diag[k]), dim=-1).sum(dim=-1)
+                    for k in ("ener_raw", "integ"))
+            n_succ = (fitted & converged).sum().to(torch.int32)
+            n_fail = (fitted & ~converged).sum().to(torch.int32)
+            n_high = (flat_present & (npulse > P - 2)).sum().to(torch.int32)
+        if reduce_axes:
+            counts = torch.stack([n_succ, n_fail, n_dropped.to(torch.int32),
+                                  n_high, n_search_dropped])
+            for ax in reduce_axes:
+                counts = ax.all_reduce(counts)
+            n_succ, n_fail, n_dropped, n_high, n_search_dropped = counts.unbind()
+
+        return PipelineOutput(
+            wfnpulse=npulse.reshape(E, B),
+            wftime=wftime.reshape(E, B, P),
+            wfampl=wfampl.reshape(E, B, P),
+            pulse_valid=pulse_mask.reshape(E, B, P),
+            chi2=chi2.reshape(E, B),
+            timewf=timewf.reshape(E, B),
+            amplwf=amplwf.reshape(E, B),
+            pedwf=pedwf.reshape(E, B),
+            gate=gate.reshape(E, B),
+            fit_converged=(fitted & converged).reshape(E, B),
+            fit_n_iter=torch.where(fitted, n_iter_lanes, 0).reshape(E, B),
+            h1time=h1.reshape(E, B, P),
+            h2time=wftime.reshape(E, B, P),
+            h_mask=h_mask.reshape(E, B, P),
+            ampl=diag["ampl"], ener=diag["ener"], integ=diag["integ"],
+            bkg=diag["bkg"], noise=diag["noise"],
+            enertot=enertot, integtot=integtot,
+            n_fit_success=n_succ,
+            n_fit_failure=n_fail,
+            n_fit_dropped=n_dropped,
+            n_high_pulse=n_high,
+            n_search_dropped=n_search_dropped,
+            search_overflow=search_overflow.reshape(E, B))
 
 
 # ----------------------------------------------------------------------

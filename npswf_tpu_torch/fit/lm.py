@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from npswf_tpu_torch import kernels
 from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch.fit.eval_kernel import (NARROW_P, dp_du, fused_eval,
                                              fused_eval_plain, fused_neq,
@@ -34,6 +35,7 @@ from npswf_tpu_torch.fit.eval_kernel import (NARROW_P, dp_du, fused_eval,
                                              fused_system_plain, to_physical)
 from npswf_tpu_torch.fit.linalg import cholesky_solve
 from npswf_tpu_torch.models.waveform import WaveformModel, get_model
+from npswf_tpu_torch.utils.timers import span
 
 
 class FitInputs(NamedTuple):
@@ -196,6 +198,7 @@ def lm_loop(cfg: NPSConfig, system, u0, lo, hi, param_mask, active,
     n_iter = torch.zeros((N,), dtype=torch.int32, device=dev)
     edm = torch.full((N,), float("inf"), dtype=dtype, device=dev)
     for _ in range(max_iter):
+        kernels.count("sync.fit.lm_loop_done")
         if bool(done.all()):
             break
         gcrit = gcrit_of(A, g, chi2, u)
@@ -288,7 +291,11 @@ def _prepare(cfg: NPSConfig, inp: FitInputs):
 def fit_waveforms(cfg: NPSConfig, inp: FitInputs, model_name: str = "",
                   plain: bool = False) -> FitResult:
     """The escalated batched fit: stage 1, the stage-2 seed restart and the
-    stage-3 pull-back rungs, merged into one FitResult."""
+    stage-3 pull-back rungs, merged into one FitResult.
+
+    Stage 1 is the span ``fit.stage1`` and each rung (stage 2, each
+    pull-back) a ``fit.retry``; ``kernels.counts`` takes the rungs, the
+    lanes each retries and the ladder's host syncs by site."""
     model = get_model(model_name or cfg.model_name)
     N = inp.t_seed.shape[0]
     lo, hi, p_seed, pm, u0, s1_budget, s2_budget = _prepare(cfg, inp)
@@ -297,31 +304,38 @@ def fit_waveforms(cfg: NPSConfig, inp: FitInputs, model_name: str = "",
 
     # stage 1 runs as one piece (no tier, no chunking: both are layouts of
     # the same row-wise iteration)
-    u1, chi2_1, conv1, it1, edm1, _ = lm_solve(
-        cfg, model, inp, u0, lo, hi, p_seed, pm, inp.active, s1_cap,
-        cfg.lm_lambda_init, s1_budget, plain=plain)
+    with span("fit.stage1"):
+        u1, chi2_1, conv1, it1, edm1, _ = lm_solve(
+            cfg, model, inp, u0, lo, hi, p_seed, pm, inp.active, s1_cap,
+            cfg.lm_lambda_init, s1_budget, plain=plain)
 
     def retry(mask, start_u, lam0):
         """Re-solve the ``mask`` lanes from ``start_u`` with the stage-2
         budgets. The reference package walks them in chunks of N/32 and N/64;
         chunking is layout only (the LM update is row-wise), so every masked
         lane is gathered into one call here. Rows outside ``mask`` are zero."""
-        sel = torch.nonzero(mask).squeeze(1)
+        with span("fit.retry"):
+            sel = torch.nonzero(mask).squeeze(1)
+            kernels.count("sync.fit.retry_select")
+            kernels.count("fit.rungs")
+            kernels.count("fit.retry_lanes", sel.numel())
 
-        def take(a):
-            return None if a is None else a.index_select(0, sel)
-        inp2 = FitInputs(*(take(v) for v in inp))
-        u_c, chi2_c, conv_c, it_c, _, _ = lm_solve(
-            cfg, model, inp2, take(start_u), take(lo), take(hi), take(p_seed),
-            take(pm), take(mask), s2_cap, lam0, take(s2_budget), plain=plain)
-        u2 = torch.zeros_like(u1).index_copy(0, sel, u_c)
-        chi2_2 = torch.zeros_like(chi2_1).index_copy(0, sel, chi2_c)
-        conv2 = torch.zeros_like(conv1).index_copy(0, sel, conv_c)
-        it2 = torch.zeros_like(it1).index_copy(0, sel, it_c)
-        return u2, chi2_2, conv2, it2
+            def take(a):
+                return None if a is None else a.index_select(0, sel)
+            inp2 = FitInputs(*(take(v) for v in inp))
+            u_c, chi2_c, conv_c, it_c, _, _ = lm_solve(
+                cfg, model, inp2, take(start_u), take(lo), take(hi),
+                take(p_seed), take(pm), take(mask), s2_cap, lam0,
+                take(s2_budget), plain=plain)
+            u2 = torch.zeros_like(u1).index_copy(0, sel, u_c)
+            chi2_2 = torch.zeros_like(chi2_1).index_copy(0, sel, chi2_c)
+            conv2 = torch.zeros_like(conv1).index_copy(0, sel, conv_c)
+            it2 = torch.zeros_like(it1).index_copy(0, sel, it_c)
+            return u2, chi2_2, conv2, it2
 
     failed1 = inp.active & ~conv1
     # each retry runs only when some lane needs it (a host sync)
+    kernels.count("sync.fit.ladder_any")
     if bool(failed1.any()):
         u2, chi2_2, conv2, it2 = retry(failed1, u0, cfg.lm_lambda_init * 10.0)
     else:
@@ -331,6 +345,7 @@ def fit_waveforms(cfg: NPSConfig, inp: FitInputs, model_name: str = "",
     if cfg.lm_stage3:
         for pullback in cfg.lm_stage3_pullbacks:
             failed2 = failed1 & ~conv2
+            kernels.count("sync.fit.ladder_any")
             if not bool(failed2.any()):
                 break
             sinu1 = torch.sin(u1)

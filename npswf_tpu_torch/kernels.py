@@ -12,8 +12,12 @@ is no fallback.
 Every C entry point returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code. ``launches`` counts kernel launches by name and
 ``plain_calls`` counts calls of the plain PyTorch versions, so a run can
-show which path it took. ``count_launch`` and ``count_plain`` add to them
-under a lock: the segment executor runs ``process_batch`` on two threads.
+show which path it took. ``counts`` holds the layers' own counters, each a
+number the host already holds where it is counted: ``process_batch``
+calls, the host syncs of the program's own code by site (``sync.<site>``)
+and the fit ladder's lanes and rungs. ``count_launch``, ``count_plain`` and
+``count`` add to them under a lock: the segment executor runs
+``process_batch`` on two threads.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ KERNEL_NAMES = (MATCHED_FILTER, SEARCH_OPERANDS, SEARCH_TOPK, LM_SOLVE,
 
 launches: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
+counts: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
 
 
@@ -61,10 +66,28 @@ def count_plain(name: str) -> None:
         plain_calls[name] += 1
 
 
+def count(name: str, n: int = 1) -> None:
+    with _count_lock:
+        counts[name] += n
+
+
 def reset_counts() -> None:
     with _count_lock:
         launches.clear()
         plain_calls.clear()
+        counts.clear()
+
+
+def counts_report() -> str:
+    """The three counters since the process started or last reset them,
+    one line each, sorted by name."""
+    with _count_lock:
+        parts = [(title, sorted(c.items())) for title, c in (
+            ("kernel launches", launches), ("plain calls", plain_calls),
+            ("program counters", counts))]
+    return "\n".join(f"{title}: " + (", ".join(f"{k} {v}" for k, v in items)
+                                      or "none")
+                     for title, items in parts)
 
 
 _P, _I, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,

@@ -45,6 +45,7 @@ def _taps(sigma: float, T: int, dtype: torch.dtype,
     taps = torch.as_tensor(host, device=device).to(dtype)
     # other streams (the segment executor's two workers) read it from now on
     torch.cuda.current_stream(device).synchronize()
+    kernels.count("sync.ops.search_taps")
     return taps
 
 

@@ -11,7 +11,18 @@ TEST_2.C:281-534, 1302-1439):
   (batch-granular resume: a rerun skips completed ranges),
 - the parts are merged in event order into the final WF file with the
   (runnum, evt) index (ref TEST_2.C:1383-1432),
-- per-stage wall timers and fit-health counters are reported at exit.
+- per-stage wall timers and fit-health counters are reported at exit,
+  beside the program's counters (``kernels.counts_report``).
+
+Each stage is a span (``utils.timers.span``): ``runtime.decode``,
+``runtime.upload`` and ``runtime.pipeline`` on the stage workers,
+``runtime.write`` on the writer, and on the main thread, inside
+``runtime.run_segment``, ``runtime.produce_wait`` (waiting for the next
+produced group), ``runtime.fetch``, ``runtime.unpack``,
+``runtime.write_wait`` (waiting for the writer's backlog) and
+``runtime.merge``. The ``StageTimer`` records each under its stage's name
+(``decode``, ...). ``upload``, ``pipeline`` and ``fetch`` are host time:
+what the thread spent enqueueing and waiting, not the device's work.
 
 On a CUDA device each stage worker issues its work on a stream of its
 own: the upload from pinned host memory, ``process_batch`` (whose kernels
@@ -46,6 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from npswf_tpu_torch import kernels
 from npswf_tpu_torch.core.calibration import CalibrationBundle
 from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch.core.params import calib_to_torch
@@ -56,7 +68,7 @@ from npswf_tpu_torch.io.decode import DecodedBatch, decode_segment
 from npswf_tpu_torch.io.merge import merge_parts
 from npswf_tpu_torch.io.rawstream import RawSegment
 from npswf_tpu_torch.io.writer import WFWriter
-from npswf_tpu_torch.utils.timers import StageTimer, device_trace
+from npswf_tpu_torch.utils.timers import StageTimer, device_trace, span
 
 log = logging.getLogger("npswf")
 
@@ -298,206 +310,214 @@ def run_segment(cfg: NPSConfig, cal: CalibrationBundle, seg: RawSegment,
         return _run_segment_mesh(cfg, cal, seg, out_path, batch_size, mesh,
                                  resume, use_native_decode, timers,
                                  progress_every, profile_dir, compress_output)
-    dev = resolve_device(device)
-    timers = timers or StageTimer()
-    t_start = time.perf_counter()
-    dtype = torch_dtype(cfg)
-    calib = calib_to_torch(cal.device_arrays(cfg), dev, dtype)
-    if dev.type == "cuda":
-        # the workers' streams read the calibration
-        torch.cuda.current_stream(dev).synchronize()
+    with span("runtime.run_segment"):
+        dev = resolve_device(device)
+        timers = timers or StageTimer()
+        t_start = time.perf_counter()
+        dtype = torch_dtype(cfg)
+        calib = calib_to_torch(cal.device_arrays(cfg), dev, dtype)
+        if dev.type == "cuda":
+            # the workers' streams read the calibration
+            torch.cuda.current_stream(dev).synchronize()
 
-    E, B = batch_size, cfg.nblocks
-    E_total = seg.n_events
-    parts_dir = out_path + ".parts"
-    os.makedirs(parts_dir, exist_ok=True)
-    progress = _Progress(out_path + ".progress.json")
+        E, B = batch_size, cfg.nblocks
+        E_total = seg.n_events
+        parts_dir = out_path + ".parts"
+        os.makedirs(parts_dir, exist_ok=True)
+        progress = _Progress(out_path + ".progress.json")
 
-    ranges = [(lo, min(lo + batch_size, E_total))
-              for lo in range(0, E_total, batch_size)]
-    pending = [r for r in ranges if not (resume and progress.done(*r))]
-    if len(pending) < len(ranges):
-        log.info("resume: skipping %d completed batches",
-                 len(ranges) - len(pending))
+        ranges = [(lo, min(lo + batch_size, E_total))
+                  for lo in range(0, E_total, batch_size)]
+        pending = [r for r in ranges if not (resume and progress.done(*r))]
+        if len(pending) < len(ranges):
+            log.info("resume: skipping %d completed batches",
+                     len(ranges) - len(pending))
 
-    # ---- packet sizing from the first batch's occupancy ----------------
-    first = None
-    pack_cap, lane_cap = 2 * E * B, 0
-    if pending:
-        lo0, hi0 = pending[0]
-        with timers.stage("decode"):
-            d0 = decode_segment(cfg, cal, seg, lo0, hi0,
-                                use_native=use_native_decode)
-            d0_pad = _pad_decoded(cfg, d0, batch_size)
-        pack_cap, lane_cap = packet_caps(
-            E, B, int(d0_pad.pres[:, :B].astype(bool).sum()))
-        first = (d0, d0_pad)
-    k_chain = max(int(chain_batches), 1)
-    packed_chain = make_pipeline_packed_chain(cfg, calib, pack_cap, lane_cap)
-    streams = _Streams(dev)
+        # ---- packet sizing from the first batch's occupancy ----------------
+        first = None
+        pack_cap, lane_cap = 2 * E * B, 0
+        if pending:
+            lo0, hi0 = pending[0]
+            with span("runtime.decode", timers):
+                d0 = decode_segment(cfg, cal, seg, lo0, hi0,
+                                    use_native=use_native_decode)
+                d0_pad = _pad_decoded(cfg, d0, batch_size)
+            pack_cap, lane_cap = packet_caps(
+                E, B, int(d0_pad.pres[:, :B].astype(bool).sum()))
+            first = (d0, d0_pad)
+        k_chain = max(int(chain_batches), 1)
+        packed_chain = make_pipeline_packed_chain(cfg, calib, pack_cap, lane_cap)
+        streams = _Streams(dev)
 
-    done_events = 0
-    trace_ctx = device_trace(profile_dir)
-    trace_ctx.__enter__()
+        done_events = 0
+        trace_ctx = device_trace(profile_dir)
+        trace_ctx.__enter__()
 
-    def produce(group, pre_decoded=None):
-        """Decode -> upload -> run -> start the packet's copy back, for a
-        chain of batch ranges (on a stage worker thread, on its stream)."""
-        stream = streams.get()
-        items = []
-        with _on(stream):
-            for j, (lo, hi) in enumerate(group):
-                if j == 0 and pre_decoded is not None:
-                    d, d_pad = pre_decoded
+        def produce(group, pre_decoded=None):
+            """Decode -> upload -> run -> start the packet's copy back, for a
+            chain of batch ranges (on a stage worker thread, on its stream)."""
+            stream = streams.get()
+            items = []
+            with _on(stream):
+                for j, (lo, hi) in enumerate(group):
+                    if j == 0 and pre_decoded is not None:
+                        d, d_pad = pre_decoded
+                    else:
+                        with span("runtime.decode", timers):
+                            d = decode_segment(cfg, cal, seg, lo, hi,
+                                               use_native=use_native_decode)
+                            d_pad = _pad_decoded(cfg, d, batch_size)
+                    with span("runtime.upload", timers):
+                        dev_batch = _upload_batch(cfg, d_pad, dtype, dev)
+                    items.append((lo, hi, d, d_pad, dev_batch))
+                with span("runtime.pipeline", timers):
+                    flat = packed_chain([it[4] for it in items])
+                    if stream is None:
+                        return items, flat, None, None
+                    # one copy back into pinned memory, in stream order
+                    host = torch.empty(flat.shape, dtype=flat.dtype,
+                                       pin_memory=True)
+                    host.copy_(flat, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record(stream)
+            return items, host, done, stream
+
+        last_done = [None]
+
+        def write_part(lo, hi, n_valid, d_pad, pkt_host, out):
+            nonlocal done_events
+            # inter-batch completion gap: its median is the steady-state
+            # batch period
+            t_now = time.perf_counter()
+            if last_done[0] is not None:
+                timers.record("interbatch", t_now - last_done[0])
+            last_done[0] = t_now
+            with span("runtime.write", timers):
+                w = WFWriter(cfg)
+                if pkt_host is None:
+                    w.add_batch(out, d_pad, n_valid=n_valid)
                 else:
-                    with timers.stage("decode"):
-                        d = decode_segment(cfg, cal, seg, lo, hi,
-                                           use_native=use_native_decode)
-                        d_pad = _pad_decoded(cfg, d, batch_size)
-                with timers.stage("upload"):
-                    dev_batch = _upload_batch(cfg, d_pad, dtype, dev)
-                items.append((lo, hi, d, d_pad, dev_batch))
-            with timers.stage("pipeline"):
-                flat = packed_chain([it[4] for it in items])
-                if stream is None:
-                    return items, flat, None, None
-                # one copy back into pinned memory, in stream order
-                host = torch.empty(flat.shape, dtype=flat.dtype,
-                                   pin_memory=True)
-                host.copy_(flat, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record(stream)
-        return items, host, done, stream
+                    w.add_packet(pkt_host, d_pad, n_valid=n_valid)
+                w.finalize(os.path.join(parts_dir, f"part_{lo:09d}_{hi:09d}.npz"),
+                           compress=False)
+            progress.mark(lo, hi)
+            done_events += n_valid
+            if done_events % progress_every < batch_size:
+                dt_el = time.perf_counter() - t_start
+                log.info(" Entry = %d  elapsed=%.2fs (%.0f ev/s)",
+                         lo + n_valid, dt_el, done_events / max(dt_el, 1e-9))
 
-    last_done = [None]
+        # three-deep pipeline: 2 stage workers (decode, upload, run), the main
+        # thread fetches results in order, 1 writer thread persists parts.
+        groups = [pending[i:i + k_chain]
+                  for i in range(0, len(pending), k_chain)]
+        stage_pool = ThreadPoolExecutor(max_workers=2)
+        write_pool = ThreadPoolExecutor(max_workers=1)
+        max_inflight = 3
+        futs = deque()
+        wfuts = deque()
+        idx_next = 0
 
-    def write_part(lo, hi, n_valid, d_pad, pkt_host, out):
-        nonlocal done_events
-        # inter-batch completion gap: its median is the steady-state
-        # batch period
-        t_now = time.perf_counter()
-        if last_done[0] is not None:
-            timers.record("interbatch", t_now - last_done[0])
-        last_done[0] = t_now
-        with timers.stage("write"):
-            w = WFWriter(cfg)
-            if pkt_host is None:
-                w.add_batch(out, d_pad, n_valid=n_valid)
-            else:
-                w.add_packet(pkt_host, d_pad, n_valid=n_valid)
-            w.finalize(os.path.join(parts_dir, f"part_{lo:09d}_{hi:09d}.npz"),
-                       compress=False)
-        progress.mark(lo, hi)
-        done_events += n_valid
-        if done_events % progress_every < batch_size:
-            dt_el = time.perf_counter() - t_start
-            log.info(" Entry = %d  elapsed=%.2fs (%.0f ev/s)",
-                     lo + n_valid, dt_el, done_events / max(dt_el, 1e-9))
+        def submit_next():
+            nonlocal idx_next, first
+            if idx_next < len(groups):
+                pre = first if idx_next == 0 else None
+                first = None
+                futs.append(stage_pool.submit(produce, groups[idx_next], pre))
+                idx_next += 1
 
-    # three-deep pipeline: 2 stage workers (decode, upload, run), the main
-    # thread fetches results in order, 1 writer thread persists parts.
-    groups = [pending[i:i + k_chain]
-              for i in range(0, len(pending), k_chain)]
-    stage_pool = ThreadPoolExecutor(max_workers=2)
-    write_pool = ThreadPoolExecutor(max_workers=1)
-    max_inflight = 3
-    futs = deque()
-    wfuts = deque()
-    idx_next = 0
-
-    def submit_next():
-        nonlocal idx_next, first
-        if idx_next < len(groups):
-            pre = first if idx_next == 0 else None
-            first = None
-            futs.append(stage_pool.submit(produce, groups[idx_next], pre))
-            idx_next += 1
-
-    try:
-        for _ in range(max_inflight):
-            submit_next()
-        while futs:
-            items, flat, done, stream = futs.popleft().result()
-            submit_next()
-            with timers.stage("fetch"):
-                if done is not None:
-                    done.synchronize()
-                rows = list(flat.numpy())                   # [k, total]
-            for (lo, hi, d, d_pad, dev_batch), buf in zip(items, rows):
-                n_valid = hi - lo
-                _warn_bad_events(d, n_valid)
-                pkt_host, lane_ovf = unflatten_packet(
-                    buf, batch_size, cfg.nblocks, pack_cap,
-                    pres=d_pad.pres[:, :B], lane_cap=lane_cap,
-                    P=cfg.maxwfpulses)
-                out = None
-                # slab packets (lane_cap > 0) have no element capacity —
-                # only lane overflow forces the dense fallback
-                if lane_ovf or (lane_cap == 0
-                                and (int(pkt_host.n_wf) > pack_cap
-                                     or int(pkt_host.n_h) > pack_cap)):
-                    # occupancy burst beyond the batch-0 sizing: run this
-                    # batch again through the dense pipeline, on the stream
-                    # that holds its tensors, and hand the writer host
-                    # arrays
-                    log.warning("batch %d-%d: writer-packet overflow (%d/%d "
+        try:
+            for _ in range(max_inflight):
+                submit_next()
+            while futs:
+                with span("runtime.produce_wait", timers):
+                    items, flat, done, stream = futs.popleft().result()
+                submit_next()
+                with span("runtime.fetch", timers):
+                    if done is not None:
+                        done.synchronize()
+                    rows = list(flat.numpy())                   # [k, total]
+                for (lo, hi, d, d_pad, dev_batch), buf in zip(items, rows):
+                    n_valid = hi - lo
+                    _warn_bad_events(d, n_valid)
+                    with span("runtime.unpack"):
+                        pkt_host, lane_ovf = unflatten_packet(
+                            buf, batch_size, cfg.nblocks, pack_cap,
+                            pres=d_pad.pres[:, :B], lane_cap=lane_cap,
+                            P=cfg.maxwfpulses)
+                        out = None
+                        # slab packets (lane_cap > 0) have no element
+                        # capacity — only lane overflow forces the dense
+                        # fallback
+                        if lane_ovf or (lane_cap == 0
+                                        and (int(pkt_host.n_wf) > pack_cap
+                                             or int(pkt_host.n_h) > pack_cap)):
+                            # occupancy burst beyond the batch-0 sizing: run
+                            # this batch again through the dense pipeline, on
+                            # the stream that holds its tensors, and hand the
+                            # writer host arrays
+                            log.warning(
+                                "batch %d-%d: writer-packet overflow (%d/%d "
                                 "wf, %d/%d h, lane_ovf=%s); re-running batch "
                                 "dense", lo, hi, int(pkt_host.n_wf), pack_cap,
                                 int(pkt_host.n_h), pack_cap, lane_ovf)
-                    pkt_host = None
-                    with _on(stream):
-                        out = output_to_host(
-                            process_batch(cfg, calib, dev_batch))
-                wfuts.append(write_pool.submit(
-                    write_part, lo, hi, n_valid, d_pad, pkt_host, out))
-            while len(wfuts) > 2:
-                wfuts.popleft().result()
-        for wf_ in wfuts:
-            wf_.result()
-    finally:
-        # on error: let queued part writes finish (progress sidecar stays
-        # resumable), then surface the original exception
-        trace_ctx.__exit__(None, None, None)
-        stage_pool.shutdown(wait=True)
-        write_pool.shutdown(wait=True)
+                            pkt_host = None
+                            with _on(stream):
+                                out = output_to_host(
+                                    process_batch(cfg, calib, dev_batch))
+                    wfuts.append(write_pool.submit(
+                        write_part, lo, hi, n_valid, d_pad, pkt_host, out))
+                with span("runtime.write_wait", timers):
+                    while len(wfuts) > 2:
+                        wfuts.popleft().result()
+            with span("runtime.write_wait", timers):
+                for wf_ in wfuts:
+                    wf_.result()
+        finally:
+            # on error: let queued part writes finish (progress sidecar stays
+            # resumable), then surface the original exception
+            trace_ctx.__exit__(None, None, None)
+            stage_pool.shutdown(wait=True)
+            write_pool.shutdown(wait=True)
 
-    # ---- ordered merge of parts (the temp->final clone, ref :1396-1432) ----
-    with timers.stage("merge"):
-        part_paths = [os.path.join(parts_dir, f)
-                      for f in sorted(os.listdir(parts_dir))]
-        merged = merge_parts(part_paths, out_path, payload=dict(seg.payload),
-                             compress=compress_output)
-    shutil.rmtree(parts_dir, ignore_errors=True)
-    if os.path.exists(out_path + ".progress.json"):
-        os.remove(out_path + ".progress.json")
+        # ---- ordered merge of parts (the temp->final clone, ref :1396-1432) ----
+        with span("runtime.merge", timers):
+            part_paths = [os.path.join(parts_dir, f)
+                          for f in sorted(os.listdir(parts_dir))]
+            merged = merge_parts(part_paths, out_path, payload=dict(seg.payload),
+                                 compress=compress_output)
+        shutil.rmtree(parts_dir, ignore_errors=True)
+        if os.path.exists(out_path + ".progress.json"):
+            os.remove(out_path + ".progress.json")
 
-    wall = time.perf_counter() - t_start
-    res = RunResult(
-        n_events=E_total,
-        n_fit_success=merged.n_fit_success,
-        n_fit_failure=merged.n_fit_failure,
-        n_fit_dropped=merged.n_fit_dropped,
-        wall_time=wall,
-        events_per_sec=E_total / max(wall, 1e-9),
-        blocks_per_sec=E_total * cfg.nblocks / max(wall, 1e-9),
-        out_path=out_path,
-        n_bad_slot=merged.n_bad_slot,
-        n_oversize=merged.n_oversize,
-        n_truncated=merged.n_truncated,
-        n_high_pulse=merged.n_high_pulse,
-        n_search_dropped=merged.n_search_dropped)
-    log.info("Total failed fits: %d total fits succeed: %d (dropped %d)",
-             res.n_fit_failure, res.n_fit_success, res.n_fit_dropped)
-    if (res.n_bad_slot or res.n_oversize or res.n_truncated
-            or res.n_high_pulse or res.n_search_dropped):
-        log.warning(
-            "decode/search guards: %d bad-slot, %d oversize-skipped, "
-            "%d truncated events; %d high-pulse-count blocks; "
-            "%d search-capacity-dropped lanes",
-            res.n_bad_slot, res.n_oversize, res.n_truncated,
-            res.n_high_pulse, res.n_search_dropped)
-    log.info(timers.report())
-    return res
+        wall = time.perf_counter() - t_start
+        res = RunResult(
+            n_events=E_total,
+            n_fit_success=merged.n_fit_success,
+            n_fit_failure=merged.n_fit_failure,
+            n_fit_dropped=merged.n_fit_dropped,
+            wall_time=wall,
+            events_per_sec=E_total / max(wall, 1e-9),
+            blocks_per_sec=E_total * cfg.nblocks / max(wall, 1e-9),
+            out_path=out_path,
+            n_bad_slot=merged.n_bad_slot,
+            n_oversize=merged.n_oversize,
+            n_truncated=merged.n_truncated,
+            n_high_pulse=merged.n_high_pulse,
+            n_search_dropped=merged.n_search_dropped)
+        log.info("Total failed fits: %d total fits succeed: %d (dropped %d)",
+                 res.n_fit_failure, res.n_fit_success, res.n_fit_dropped)
+        if (res.n_bad_slot or res.n_oversize or res.n_truncated
+                or res.n_high_pulse or res.n_search_dropped):
+            log.warning(
+                "decode/search guards: %d bad-slot, %d oversize-skipped, "
+                "%d truncated events; %d high-pulse-count blocks; "
+                "%d search-capacity-dropped lanes",
+                res.n_bad_slot, res.n_oversize, res.n_truncated,
+                res.n_high_pulse, res.n_search_dropped)
+        log.info(timers.report())
+        log.info(kernels.counts_report())
+        return res
 
 
 # ---------------------------------------------------------------------
@@ -572,21 +592,21 @@ def _mesh_rank(rm, cfg, cal, seg, stream_path, out_path, batch_size, resume,
     with device_trace(profile_dir if lead else None):
         for lo, hi in pending:
             n_valid = hi - lo
-            with timers.stage("decode"):
+            with span("runtime.decode", timers):
                 d = decode_segment(cfg, cal, seg, lo, hi,
                                    use_native=use_native_decode)
                 d_pad = _pad_decoded(cfg, d, batch_size)
-            with timers.stage("upload"):
+            with span("runtime.upload", timers):
                 local = shard_event_batch(
                     cfg, _to_event_batch(cfg, d_pad, dtype, "cpu"), rm)
-            with timers.stage("pipeline"):
+            with span("runtime.pipeline", timers):
                 out = pipeline(local)
-            with timers.stage("fetch"):
+            with span("runtime.fetch", timers):
                 glob = gather_output(out, rm)
             if not lead:
                 continue
             _warn_bad_events(d, n_valid)
-            with timers.stage("write"):
+            with span("runtime.write", timers):
                 out_t = PipelineOutput(*(torch.as_tensor(a, device=rm.device)
                                          for a in glob))
                 buf = flatten_packet(pack_for_writer(out_t, pack_cap))
@@ -610,7 +630,7 @@ def _mesh_rank(rm, cfg, cal, seg, stream_path, out_path, batch_size, resume,
                          time.perf_counter() - t_start)
     if not lead:
         return None
-    with timers.stage("merge"):
+    with span("runtime.merge", timers):
         part_paths = [os.path.join(parts_dir, f)
                       for f in sorted(os.listdir(parts_dir))]
         merged = merge_parts(part_paths, out_path, payload=dict(seg.payload),
@@ -629,4 +649,5 @@ def _mesh_rank(rm, cfg, cal, seg, stream_path, out_path, batch_size, resume,
         n_high_pulse=merged.n_high_pulse,
         n_search_dropped=merged.n_search_dropped)
     log.info(timers.report())
+    log.info(kernels.counts_report())
     return res, dict(timers.samples)

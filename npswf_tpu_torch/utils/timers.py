@@ -1,11 +1,14 @@
 # StageTimer is copied from npswf_tpu/utils/timers.py (tests/test_torch_host.py
-# pins it there); device_trace is ported from jax.profiler to torch.profiler.
-"""Per-stage wall-clock timers and a device trace around a region.
+# pins it there); device_trace is ported from jax.profiler to torch.profiler;
+# span is the port's own.
+"""Per-stage wall-clock timers, spans and a device trace around a region.
 
 Equivalent of the reference's TStopwatch instrumentation (ref TEST_2.C:283-284,
 308, 1121-1127, 1388-1393, 1424-1428): named stage timers with cumulative
 totals and medians, plus an optional ``torch.profiler`` trace written as a
-Chrome trace.
+Chrome trace. ``span`` marks a layer's work: a ``StageTimer`` stage where the
+caller keeps one, and, while a profiler records, a ``record_function`` range
+named ``npswf.<layer>.<stage>`` on the profiler's clock.
 """
 from __future__ import annotations
 
@@ -15,7 +18,10 @@ import os
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Iterator, Optional
+from typing import ContextManager, Dict, Iterator, Optional
+
+import torch
+from torch.autograd import profiler as _profiler
 
 log = logging.getLogger("npswf")
 
@@ -73,20 +79,50 @@ class StageTimer:
                 if lines else "stage timers: none")
 
 
+_NULL = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _both(outer: ContextManager, inner: ContextManager) -> Iterator[None]:
+    with outer, inner:
+        yield
+
+
+def span(name: str, timers: Optional[StageTimer] = None) -> ContextManager:
+    """The region of ``name`` (``<layer>.<stage>``, e.g. ``runtime.decode``).
+
+    ``timers`` records its wall time under the stage's own name (``decode``),
+    as ``timers.stage`` does. While a ``torch.profiler`` records, the region
+    is also a ``record_function`` range ``npswf.<name>``, in the timeline of
+    the kernels it launches; otherwise it costs one flag read and, without
+    ``timers``, is a shared null context."""
+    stage = _NULL if timers is None else timers.stage(name.rsplit(".", 1)[-1])
+    if not _profiler._is_profiler_enabled:
+        return stage
+    traced = torch.profiler.record_function(f"npswf.{name}")
+    return traced if timers is None else _both(traced, stage)
+
+
 @contextlib.contextmanager
 def device_trace(outdir: Optional[str]) -> Iterator[None]:
     """``torch.profiler`` trace of the host and, where there is one, the
     CUDA device around a region, written to ``outdir/trace.json`` (Chrome
-    trace format; chrome://tracing or Perfetto read it)."""
+    trace format; chrome://tracing or Perfetto read it). Every thread is
+    recorded where the installed torch can (``profile_all_threads``): the
+    executor's stage workers and writer, with their ``npswf.*`` spans."""
     if not outdir:
         yield
         return
-    import torch
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        extra = {"experimental_config": torch._C._profiler._ExperimentalConfig(
+            profile_all_threads=True)}
+    except (AttributeError, TypeError):    # a torch without the option
+        extra = {}
     os.makedirs(outdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, **extra) as prof:
         yield
     path = os.path.join(outdir, "trace.json")
     prof.export_chrome_trace(path)

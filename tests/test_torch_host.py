@@ -102,7 +102,12 @@ PAIRS = [(config, jax_config), (calibration, jax_calibration),
 # definitions of those modules that are ported, not copied, and why
 PORTED = {
     "timers.device_trace": "torch.profiler (a Chrome trace) in place of "
-                           "jax.profiler",
+                           "jax.profiler; every thread where torch can",
+    "timers.span": "the port's own, no JAX original: a StageTimer stage "
+                   "and, while torch.profiler records, a record_function "
+                   "range",
+    "timers._both": "the port's own, no JAX original: span's two regions "
+                    "as one",
     "executor.resolve_device": "the card unless the CPU is asked for",
     "executor.torch_dtype": "the compute dtype as a torch dtype",
     "executor._to_event_batch": "torch tensors on a device",
