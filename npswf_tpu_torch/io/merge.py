@@ -1,4 +1,5 @@
-# Copied from npswf_tpu/io/merge.py; tests/test_torch_host.py pins it there.
+# Copied from npswf_tpu/io/merge.py but for merge_parts' column stream and its
+# helpers, a port; tests/test_torch_host.py pins the rest there.
 """Streaming ordered merge of WF part files.
 
 The reference merges its temp Snapshot into the final file through ROOT trees,
@@ -8,26 +9,47 @@ whole run's columns at finalize, which is fine for tests but not for a
 production segment (~10^5-10^6 events x 1080 blocks of f64 Samp* columns).
 
 This module is the production path: a two-pass merge over the part files that
-never materializes more than one part's column at a time.
+never holds more than one part's columns at a time.
 
 - pass 1 reads only the small metadata of every part: ``evt``/``runnum``
   (needed for the (runnum, evt) sort index, ref :1410), the ragged offsets,
   counters and histograms, plus each big column's shape/dtype from its .npy
   header inside the part zip (no data read).
-- pass 2 opens one output zip member per column and streams each part's chunk
-  into it, so peak memory = one part's largest column.
+- pass 2 reads each part once, in order, and hands each column's chunk to
+  that column's member: its .npy header, then its chunks in part order,
+  through the member's own DEFLATE stream (the ``zlib`` compressor
+  ``zipfile`` uses for ``ZIP_DEFLATED`` at its default level) and CRC. The
+  members take their chunks at the same time on a thread pool (``zlib``
+  releases the GIL), as wide as the members and the cores this process may
+  use; at width 1 they run on the calling thread. A member's compressed
+  bytes wait in an unnamed spool file in the parts' directory, so memory is
+  one part's columns plus a compressor a member, whatever the run's length.
+- the members are then written into the zip in order, each as
+  ``ZipFile.open(name, "w", force_zip64=True)`` writes it: a zip64 local
+  header and the spooled bytes. Each member's bytes, CRC and sizes are
+  those of the serial merge.
 
 The output is byte-compatible with ``np.load`` (same layout as
 ``WFWriter.finalize``); a test asserts streaming == in-memory results.
 """
 from __future__ import annotations
 
+import contextlib
+import io
+import os
+import shutil
+import struct
+import tempfile
 import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 from numpy.lib import format as npformat
+
+from npswf_tpu_torch import kernels
 
 # members handled specially rather than stream-concatenated on axis 0
 _SPECIAL = ("wf_offsets", "h_offsets", "sort_order",
@@ -61,21 +83,106 @@ def _npy_meta(zf: zipfile.ZipFile, member: str) -> Tuple[tuple, np.dtype]:
     return shape, dtype
 
 
-def _write_member(zf: zipfile.ZipFile, name: str, shape: tuple,
-                  dtype: np.dtype, chunks) -> None:
-    """Stream-write one .npy zip member from an iterator of ndarray chunks."""
-    header = {"descr": npformat.dtype_to_descr(dtype),
-              "fortran_order": False, "shape": tuple(int(s) for s in shape)}
-    with zf.open(name + ".npy", "w", force_zip64=True) as fp:
+class _Member:
+    """One .npy member of the output: its header and then its data, in the
+    order given, through its own compressor (none when stored) into a spool
+    file, with the CRC and size of what went in."""
+
+    def __init__(self, name: str, shape: tuple, dtype: np.dtype,
+                 compress: bool, spool) -> None:
+        self.name = name + ".npy"
+        self.dtype = dtype
+        self.spool = spool
+        self.crc = self.size = 0
+        self.compressor = (zlib.compressobj(zlib.Z_DEFAULT_COMPRESSION,
+                                            zlib.DEFLATED, -15)
+                           if compress else None)
+        header = {"descr": npformat.dtype_to_descr(dtype),
+                  "fortran_order": False,
+                  "shape": tuple(int(s) for s in shape)}
+        buf = io.BytesIO()
         try:
-            npformat.write_array_header_1_0(fp, header)
+            npformat.write_array_header_1_0(buf, header)
         except ValueError:
-            npformat.write_array_header_2_0(fp, header)
-        for arr in chunks:
-            arr = np.ascontiguousarray(arr, dtype=dtype)
-            mv = memoryview(arr).cast("B")
-            for off in range(0, len(mv), _CHUNK):
-                fp.write(mv[off:off + _CHUNK])
+            buf = io.BytesIO()
+            npformat.write_array_header_2_0(buf, header)
+        self.feed(buf.getvalue())
+
+    def feed(self, data) -> None:
+        """Append raw bytes (or an array's, as ``dtype``, C order)."""
+        if isinstance(data, np.ndarray):
+            data = np.ascontiguousarray(data, dtype=self.dtype).reshape(-1)
+        mv = memoryview(data).cast("B")
+        for off in range(0, len(mv), _CHUNK):
+            piece = mv[off:off + _CHUNK]
+            self.crc = zlib.crc32(piece, self.crc)
+            self.size += len(piece)
+            self.spool.write(self.compressor.compress(piece)
+                             if self.compressor else piece)
+
+    def feed_npy(self, npy: bytes, crc: Optional[int]) -> None:
+        """Append the data of a part's .npy member, checked first against
+        the part's CRC of it where one is given."""
+        if crc is not None and zlib.crc32(npy) != crc:
+            raise zipfile.BadZipFile(f"Bad CRC-32 for a part's {self.name}")
+        f = io.BytesIO(npy)
+        if npformat.read_magic(f) == (1, 0):
+            npformat.read_array_header_1_0(f)
+        else:
+            npformat.read_array_header_2_0(f)
+        self.feed(memoryview(npy)[f.tell():])
+
+    def finish(self, data=None) -> None:
+        """Append ``data`` if given and end the compressed stream."""
+        if data is not None:
+            self.feed(data)
+        if self.compressor:
+            self.spool.write(self.compressor.flush())
+
+    def put(self, zf: zipfile.ZipFile) -> None:
+        """Write the member into ``zf`` as ``zf.open(self.name, "w",
+        force_zip64=True)`` would have: the same ZipInfo, a zip64 local
+        header with the final CRC and sizes, then the spooled bytes."""
+        info = zipfile.ZipInfo(self.name)
+        info.compress_type = zf.compression
+        info.external_attr = 0o600 << 16
+        info.CRC, info.file_size = self.crc, self.size
+        info.compress_size = self.spool.tell()
+        info.header_offset = zf.fp.tell()
+        zf.fp.write(info.FileHeader(zip64=True))
+        self.spool.seek(0)
+        shutil.copyfileobj(self.spool, zf.fp, 1 << 20)
+        zf.start_dir = zf.fp.tell()
+        zf.filelist.append(info)
+        zf.NameToInfo[info.filename] = info
+
+
+def _part_columns(path: str, names):
+    """(name, .npy bytes, CRC) of each column of ``names`` the part file
+    holds, in the file's order and one opening of it. A stored member (the
+    executor writes its parts stored) is read as it lies, with the CRC its
+    worker checks; any other is read through ``zipfile``, checked, and
+    given with CRC None."""
+    with open(path, "rb") as f, zipfile.ZipFile(f) as zf:
+        for info in zf.infolist():
+            name = info.filename
+            name = name[:-4] if name.endswith(".npy") else name
+            if name not in names:
+                continue
+            if info.compress_type != zipfile.ZIP_STORED:
+                with zf.open(info) as member:
+                    yield name, member.read(), None
+                continue
+            head = os.pread(f.fileno(), 30, info.header_offset)
+            if head[:4] != b"PK\003\004":
+                raise zipfile.BadZipFile(f"{path}: bad local header of "
+                                         f"{info.filename}")
+            n_name, n_extra = struct.unpack("<HH", head[26:30])
+            data = os.pread(f.fileno(), info.file_size,
+                            info.header_offset + 30 + n_name + n_extra)
+            if len(data) != info.file_size:
+                raise zipfile.BadZipFile(f"{path}: {info.filename} cut short")
+            yield name, data, info.CRC
 
 
 def merge_parts(part_paths: Sequence[str], out_path: str,
@@ -83,15 +190,25 @@ def merge_parts(part_paths: Sequence[str], out_path: str,
                 compress: bool = True) -> MergeResult:
     """Merge part files (in given order) into the final WF file, streaming.
 
-    ``compress=False`` writes ZIP_STORED members (still a valid .npz) —
-    useful when single-core DEFLATE would bottleneck the job; the final
-    file stays readable by ``np.load`` either way."""
+    Each part file is read once; its columns' chunks go to their members,
+    which DEFLATE them on a thread pool as wide as the members and the
+    cores this process may use (at width 1, serially on this thread) into
+    spool files in the parts' directory, removed however the merge ends.
+    The zip is written after every member has ended, so a failed merge
+    raises and leaves no ``out_path`` (nor spool) behind, and the parts in
+    place. ``compress=False`` writes ZIP_STORED members (still a valid
+    .npz); the final file stays readable by ``np.load`` either way.
+    Counters: ``io.merge.members`` (members written), ``io.merge.pooled``
+    (of them deflated off this thread), ``io.merge.workers`` (the width)."""
     payload = payload or {}
     if not part_paths:
         # zero-event run: write the full empty schema so downstream readers
         # (plotstats/parity) still find every column
         from npswf_tpu_torch.io.writer import write_empty_wf
-        write_empty_wf(out_path, payload)
+        cols = write_empty_wf(out_path, payload)
+        kernels.count("io.merge.members", len(cols))
+        kernels.count("io.merge.pooled", 0)
+        kernels.count("io.merge.workers", 1)
         return MergeResult(n_events=0, n_fit_success=0, n_fit_failure=0,
                            n_fit_dropped=0, n_bad_slot=0, n_oversize=0,
                            n_truncated=0, n_high_pulse=0, n_search_dropped=0)
@@ -146,30 +263,62 @@ def merge_parts(part_paths: Sequence[str], out_path: str,
     sort_order = np.lexsort((evt, runnum))
 
     # ---- pass 2: stream columns ----------------------------------------
-    def part_chunks(name):
-        for p in part_paths:
-            z = np.load(p)
-            if name in z.files:
-                yield z[name]
-            z.close()
-
+    whole = [("wf_offsets", wf_offsets), ("h_offsets", h_offsets),
+             ("sort_order", sort_order),
+             ("h1time_hist", np.asarray(h1) if h1 is not None
+              else np.zeros(0, np.int64)),
+             ("h2time_hist", np.asarray(h2) if h2 is not None
+              else np.zeros(0, np.int64)),
+             ("fit_counters", counters)]
+    whole += [(f"payload_{k}", np.asarray(v)) for k, v in payload.items()]
+    width = min(len(col_meta) + len(whole), len(os.sched_getaffinity(0)))
+    spool_dir = os.path.dirname(os.path.abspath(part_paths[0]))
     method = zipfile.ZIP_DEFLATED if compress else zipfile.ZIP_STORED
-    with zipfile.ZipFile(out_path, "w", method,
-                         allowZip64=True) as zf:
-        for name, (shape, dtype) in col_meta.items():
-            _write_member(zf, name, tuple(shape), dtype, part_chunks(name))
-        for name, arr in (
-                ("wf_offsets", wf_offsets), ("h_offsets", h_offsets),
-                ("sort_order", sort_order),
-                ("h1time_hist", np.asarray(h1) if h1 is not None
-                 else np.zeros(0, np.int64)),
-                ("h2time_hist", np.asarray(h2) if h2 is not None
-                 else np.zeros(0, np.int64)),
-                ("fit_counters", counters)):
-            _write_member(zf, name, arr.shape, arr.dtype, [arr])
-        for k, v in payload.items():
-            v = np.asarray(v)
-            _write_member(zf, f"payload_{k}", v.shape, v.dtype, [v])
+    with contextlib.ExitStack() as stack:
+        def member(name, shape, dtype):
+            spool = stack.enter_context(tempfile.TemporaryFile(dir=spool_dir))
+            return _Member(name, tuple(shape), dtype, compress, spool)
+        columns = {name: member(name, shape, dtype)
+                   for name, (shape, dtype) in col_meta.items()}
+        wholes = [(member(name, arr.shape, arr.dtype), arr)
+                  for name, arr in whole]
+        # entered last, so it has shut down before a spool closes
+        pool = (stack.enter_context(ThreadPoolExecutor(width))
+                if width > 1 else None)
+        last = {}   # member -> its call on the pool
+
+        def call(m, fn, *args):
+            # after m's previous call, so a member's calls keep their order
+            # and a member holds one chunk besides the one being read
+            if pool is None:
+                fn(*args)
+                return
+            if m in last:
+                last.pop(m).result()
+            last[m] = pool.submit(fn, *args)
+
+        for p in part_paths:
+            for name, npy, crc in _part_columns(p, columns):
+                call(columns[name], columns[name].feed_npy, npy, crc)
+        for m in columns.values():
+            call(m, m.finish)
+        for m, arr in wholes:
+            call(m, m.finish, arr)
+        for f in last.values():
+            f.result()
+        members = list(columns.values()) + [m for m, _ in wholes]
+        try:
+            with zipfile.ZipFile(out_path, "w", method,
+                                 allowZip64=True) as zf:
+                for m in members:
+                    m.put(zf)
+        except BaseException:
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(out_path)
+            raise
+    kernels.count("io.merge.members", len(members))
+    kernels.count("io.merge.pooled", len(members) if pool else 0)
+    kernels.count("io.merge.workers", width)
 
     return MergeResult(
         n_events=E,

@@ -14,8 +14,10 @@ non-zero code. ``launches`` counts kernel launches by name and
 ``plain_calls`` counts calls of the plain PyTorch versions, so a run can
 show which path it took. ``counts`` holds the layers' own counters, each a
 number the host already holds where it is counted: ``process_batch``
-calls, the host syncs of the program's own code by site (``sync.<site>``)
-and the fit ladder's lanes and rungs. ``count_launch``, ``count_plain`` and
+calls, the host syncs of the program's own code by site (``sync.<site>``),
+the fit ladder's lanes and rungs, and the WF file merge's members, those
+deflated on its pool and the pool's width (``io.merge.*``).
+``count_launch``, ``count_plain`` and
 ``count`` add to them under a lock: the segment executor runs
 ``process_batch`` on two threads.
 """

@@ -10,7 +10,8 @@ TEST_2.C:281-534, 1302-1439):
   persists each batch as a part file and records it in a progress sidecar
   (batch-granular resume: a rerun skips completed ranges),
 - the parts are merged in event order into the final WF file with the
-  (runnum, evt) index (ref TEST_2.C:1383-1432),
+  (runnum, evt) index (ref TEST_2.C:1383-1432), each part read once and
+  the file's members DEFLATEd on a thread pool (``io.merge``),
 - per-stage wall timers and fit-health counters are reported at exit,
   beside the program's counters (``kernels.counts_report``).
 

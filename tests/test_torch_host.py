@@ -14,7 +14,8 @@ the same seeds, and every copied function and method identical in source
 up to the package's name.
 
 Ported, not copied (``PORTED`` says why for each): the executor's device
-side, the CLI's commands, ``device_trace``, the solver audit's device side
+side, ``merge_parts`` (its members deflated on a thread pool), the CLI's
+commands, ``device_trace``, the solver audit's device side
 and ``cpu_baseline.main``. The native loader
 (``io/native/__init__.py``) is a port as a whole: it builds into the
 port's build directory under a lock and raises where the original falls
@@ -166,6 +167,13 @@ PORTED = {
     "measure_link.measure_link": "GB/s; the port's own dense payload; no "
                                  "TPU constant",
     "measure_link.main": "--cpu; no default device time",
+    "merge.merge_parts": "members deflated on a thread pool, each part read "
+                         "once",
+    "merge._Member": "the port's own, no JAX original: one member's "
+                     "compressor, CRC and spool, written into the zip "
+                     "precompressed",
+    "merge._part_columns": "the port's own, no JAX original: a part's "
+                           "columns read in one opening of it",
 }
 
 
