@@ -120,10 +120,15 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
     on the local lanes, as in the JAX package.
 
     The call is the span ``engine.process_batch`` (``utils.timers.span``)
-    around ``engine.search``, ``engine.gate``, one ``engine.bucket`` a
-    pulse-count bucket (its fit ladder inside), ``engine.resolve`` and
-    ``engine.diagnostics``; ``kernels.counts`` takes the call, each host
-    sync by its site and the lanes each bucket fits.
+    around ``engine.search`` (with ``search_capacity`` below the lane
+    count, ``engine.search.compact`` inside it around the lanes' selection
+    and gathers before the search and the gathers back after it),
+    ``engine.gate``, one ``engine.bucket`` a pulse-count bucket (its fit
+    ladder inside), ``engine.resolve`` and ``engine.diagnostics``;
+    ``kernels.counts`` takes the call, each host sync by its site, the
+    lanes handed to the search (``engine.search_lanes``), and for each
+    bucket the lanes it fits (``fit.stage1_lanes``) and the lanes it hands
+    to ``fit_waveforms`` (``fit.launched_lanes``: every lane in place).
     """
     if block_axis is not None or block_shards > 1:
         require_axis(block_axis, f"process_batch over {block_shards} block "
@@ -162,22 +167,31 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
             cap_s = min(cfg.search_capacity, N) if cfg.search_capacity > 0 else 0
             n_search_dropped = torch.zeros((), dtype=torch.int32, device=dev)
             search_overflow = torch.zeros((N,), dtype=torch.bool, device=dev)
-            if 0 < cap_s < N:
-                sel_s = _front(flat_present)[:cap_s]
-                ps_c = find_pulses(cfg, flat_sig[sel_s], minsignal[sel_s],
-                                   kern_flat[sel_s], mfint_flat[sel_s],
-                                   flat_present[sel_s], plain=plain)
-                pos_s = _slot(flat_present)
-                searched = flat_present & (pos_s < cap_s)
-                posc_s = torch.clamp(pos_s, max=cap_s - 1)
-                npulse = torch.where(searched, ps_c.npulse[posc_s],
-                                     0).to(torch.int32)
-                seed_t_abs = torch.where(searched[:, None], ps_c.times[posc_s],
+            compact = 0 < cap_s < N
+            kernels.count("engine.search_lanes", cap_s if compact else N)
+            if compact:
+                # the compaction: the first cap_s present lanes gathered in,
+                # their answers gathered back to every lane by _slot
+                with span("engine.search.compact"):
+                    sel_s = _front(flat_present)[:cap_s]
+                    lanes_s = (flat_sig[sel_s], minsignal[sel_s],
+                               kern_flat[sel_s], mfint_flat[sel_s],
+                               flat_present[sel_s])
+                ps_c = find_pulses(cfg, *lanes_s, plain=plain)
+                del lanes_s  # the gathered lanes are the search's alone
+                with span("engine.search.compact"):
+                    pos_s = _slot(flat_present)
+                    searched = flat_present & (pos_s < cap_s)
+                    posc_s = torch.clamp(pos_s, max=cap_s - 1)
+                    npulse = torch.where(searched, ps_c.npulse[posc_s],
+                                         0).to(torch.int32)
+                    seed_t_abs = torch.where(searched[:, None],
+                                             ps_c.times[posc_s], 0.0)
+                    seed_a = torch.where(searched[:, None], ps_c.amps[posc_s],
                                          0.0)
-                seed_a = torch.where(searched[:, None], ps_c.amps[posc_s], 0.0)
-                pulse_mask = ps_c.valid[posc_s] & searched[:, None]
-                search_overflow = flat_present & ~searched
-                n_search_dropped = search_overflow.sum().to(torch.int32)
+                    pulse_mask = ps_c.valid[posc_s] & searched[:, None]
+                    search_overflow = flat_present & ~searched
+                    n_search_dropped = search_overflow.sum().to(torch.int32)
             else:
                 ps = find_pulses(cfg, flat_sig, minsignal, kern_flat, mfint_flat,
                                  flat_present, plain=plain)
@@ -232,6 +246,7 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
                 # capacity covers every lane: fit in place, the bucket mask as
                 # `active` (no compaction permutation); else the first cap_b lanes
                 in_place = cap_b >= N
+                kernels.count("fit.launched_lanes", N if in_place else cap_b)
                 lanes = slice(None) if in_place else _front(mask)[:cap_b]
                 sel_sig = flat_sig[lanes]
                 sel_blocks = blocks_flat[lanes]
