@@ -5,7 +5,9 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 It builds the port's CUDA kernels from ``npswf_tpu_torch/csrc`` with nvcc
 (one nvcc per source, all started together), holds each of the seven
 kernels against its plain PyTorch version on the card at the main path's
-shapes, and drives ``process_batch`` on the dense 64-event batch of the
+shapes (K3 also as the fit's whole retry ladder in one launch, against
+the host ladder over its plain version, and timed against stage 1 and the
+rungs launched one by one), and drives ``process_batch`` on the dense 64-event batch of the
 full 1080-block calorimeter along four routes: the default path (K1, K2,
 K3), the generic LM loop with the in-kernel top-P search (K1, K4, K5) and
 its two system variants (K5 + K7, and K6). Each route's launch counts are
@@ -338,16 +340,17 @@ def lm_retry_inputs(torch, cfg, cal, n, max_pulses, P, seed, dtype, dev):
     return tuple(args)
 
 
-def lm_equal(torch, k, p):
-    """Lanes on which two LM results agree in u, chi2, conv, n_iter and
-    lambda, each value equal (a NaN matching a NaN)."""
+def lm_equal(torch, k, p, fields=(0, 1, 2, 3, 5)):
+    """Lanes on which two LM results agree in the outputs ``fields`` (of a
+    stage: u, chi2, conv, n_iter and lambda), each value equal (a NaN
+    matching a NaN)."""
     def same(a, b):
         eq = a == b
         if a.is_floating_point():
             eq = eq | (torch.isnan(a) & torch.isnan(b))
         return eq if eq.dim() == 1 else eq.all(dim=1)
-    lanes = same(k[0], p[0])
-    for i in (1, 2, 3, 5):
+    lanes = same(k[fields[0]], p[fields[0]])
+    for i in fields[1:]:
         lanes = lanes & same(k[i], p[i])
     return int(lanes.sum())
 
@@ -552,40 +555,155 @@ def check_lm_retry(torch, cfg, cal, dev):
                                  f"n={n}")
 
 
+def ladder_inputs(torch, cfg, cal, n, max_pulses, P, seed, dtype, dev, cut):
+    """The ladder launch's inputs for n lanes: lm_inputs' lanes with seeds
+    jittered 3.5 bins and noise 1.0, the configuration's stage-1 and
+    stage-2 budgets and caps. With ``cut``, lanes reach every rung: lane i
+    is inactive when i % 5 == 2, its stage-1 budget is i % 4 iterations,
+    its stage-2 budget 0 when i % 7 == 3, 2 when i % 3 == 0."""
+    (coeffs, x0, y, w, u0, lo, hi, p_seed, pm, active, s1_cap, _,
+     s1_budget) = lm_inputs(torch, cfg, cal, n, max_pulses, P, seed, dtype,
+                            dev, noise=1.0, seed_jitter=3.5)
+    wide = pm[:, 2::2].sum(dim=1) > cfg.lm_wide_pulses
+    s2_budget = torch.where(wide, cfg.lm_stage2_wide,
+                            cfg.lm_max_iter_stage2).to(torch.int32)
+    if cut:
+        idx = torch.arange(n, device=dev)
+        active = idx % 5 != 2
+        s1_budget = (idx % 4).to(torch.int32)
+        s2_budget = torch.where(idx % 7 == 3, 0, torch.where(
+            idx % 3 == 0, 2, s2_budget)).to(torch.int32)
+    return (coeffs, x0, y, w, u0, lo, hi, p_seed, pm, active, s1_cap,
+            s1_budget, max(cfg.lm_max_iter_stage2, cfg.lm_stage2_wide),
+            s2_budget)
+
+
+def host_ladder_kernel(torch, cfg, args):
+    """Stage 1 and the rungs as the host ran them before the ladder launch:
+    fit.lm.host_ladder over lm_solve_kernel, a launch a rung on the
+    gathered lanes. Returns lm_ladder_kernel's tuple."""
+    from npswf_tpu_torch.fit.lm import host_ladder
+    from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel
+    (coeffs, x0, y, w, u0, lo, hi, p_seed, pm, active, s1_cap, s1_budget,
+     s2_cap, s2_budget) = args
+
+    def solve(lanes, u, act, max_iter, lam0, budget):
+        c, x, y_, w_, lo_, hi_, ps, pm_ = lanes
+        return lm_solve_kernel(cfg, c, x, y_, w_, u, lo_, hi_, ps, pm_, act,
+                               max_iter, lam0, budget)
+    *stages, rungs = host_ladder(cfg, solve, (coeffs, x0, y, w, lo, hi,
+                                              p_seed, pm),
+                                 u0, pm, active, s1_cap, s1_budget, s2_cap,
+                                 s2_budget)
+    return (*stages, torch.tensor(rungs, dtype=torch.int32, device=u0.device))
+
+
+def check_lm_ladder(torch, cfg, cal, dev, records, card):
+    """K3's ladder launch (lm_ladder_kernel) against its plain version, the
+    host ladder over lm_solve_plain: stage 1's u, chi2, conv, n_iter and
+    edm, the rungs' u, chi2, conv and n_iter and the lanes each rung
+    retried equal at P = 2, 4 and 12, both types, on 1, 37 and 301 lanes
+    with cut budgets (inactive lanes, budgets of 0, every rung reached on
+    301) and on 69,120 with the configuration's. The 69,120-lane P = 2 fp32
+    launch is timed against stage 1 and the rungs as the host ran them
+    (host_ladder_kernel), whose results it equals too. A configuration of
+    nine pull-backs is held to its plain version at P = 2 on 301 lanes."""
+    from npswf_tpu_torch.fit.lm_kernel import lm_ladder_kernel, lm_ladder_plain
+    big = cal.nblocks * E_BENCH
+    for P, max_pulses in ((2, 2), (4, 4), (12, 6)):
+        for dt in (torch.float64, torch.float32):
+            for n in (1, 37, 301, big):
+                args = ladder_inputs(torch, cfg, cal, n, max_pulses, P,
+                                     91 + n + P, dt, dev, cut=n < big)
+                k = lm_ladder_kernel(cfg, *args)
+                p = lm_ladder_plain(cfg, *args)
+                torch.cuda.synchronize()
+                n_eq = lm_equal(torch, k, p, range(9))
+                rk, rp = k[9].tolist(), p[9].tolist()
+                its = k[3] + k[8]
+                say("K3", f"ladder P={P} {dt} {n} lanes "
+                          f"({int(args[9].sum())} active, stage 1 converged "
+                          f"{int(k[2].sum())}, rungs' lanes {rk}, plain "
+                          f"{rp}, iterations {int(its.min())}.."
+                          f"{int(its.max())}): stage 1 and rungs equal on "
+                          f"{n_eq}")
+                check(n_eq == n and rk == rp, f"K3 ladder not bit-equal to "
+                                              f"its plain version at P={P} "
+                                              f"{dt} n={n}")
+                if n == 301:
+                    check(all(rp), f"a rung got no lanes at P={P} {dt}")
+                if n == big and P == 2 and dt == torch.float32:
+                    h = host_ladder_kernel(torch, cfg, args)
+                    check(lm_equal(torch, k, h, range(9)) == n
+                          and h[9].tolist() == rk,
+                          "K3 ladder differs from the host's rungs over K3")
+                    fused_ms = cuda_ms(torch, lambda: lm_ladder_kernel(
+                        cfg, *args), 5)
+                    host_ms = cuda_ms(torch, lambda: host_ladder_kernel(
+                        torch, cfg, args), 5)
+                    records["lm_solve"].update(ladder_ms=fused_ms,
+                                               host_ladder_ms=host_ms)
+                    say("K3", f"ladder P=2 fp32, {n} lanes: one launch "
+                              f"{fused_ms:.4f} ms; stage 1 and the rungs "
+                              f"as the host ran them (a launch a rung) "
+                              f"{host_ms:.4f} ms ({card})")
+                del args, k, p
+    # nine pull-backs: the launch reads their values from the card's memory
+    many = cfg.replace(lm_stage3_pullbacks=tuple(
+        0.9 - 0.05 * i for i in range(9)))
+    for dt in (torch.float64, torch.float32):
+        args = ladder_inputs(torch, many, cal, 301, 2, 2, 395, dt, dev,
+                             cut=True)
+        k = lm_ladder_kernel(many, *args)
+        p = lm_ladder_plain(many, *args)
+        torch.cuda.synchronize()
+        n_eq = lm_equal(torch, k, p, range(9))
+        rk, rp = k[9].tolist(), p[9].tolist()
+        say("K3", f"ladder P=2 {dt} 301 lanes, 9 pull-backs: rungs' lanes "
+                  f"{rk}, plain {rp}: stage 1 and rungs equal on {n_eq}")
+        check(n_eq == 301 and rk == rp and len(rk) == 10,
+              f"K3 ladder with 9 pull-backs not bit-equal to its plain "
+              f"version at {dt}")
+
+
 def time_lm_launches(torch, cfg, calib, batch, records, card):
-    """K3 per launch on the default route: the calls of one process_batch
-    are captured with their arguments, then each is timed alone."""
+    """K3 per launch on the default route: the ladder launches of one
+    process_batch (one a fitted bucket) are captured with their arguments,
+    then each is timed alone."""
     from npswf_tpu_torch.engine.pipeline import process_batch
     from npswf_tpu_torch.fit import lm_kernel
-    kernel = lm_kernel.lm_solve_kernel
+    kernel = lm_kernel.lm_ladder_kernel
     calls = []
 
     def capture(cfg_, *args):
         calls.append((cfg_, args))
         return kernel(cfg_, *args)
-    lm_kernel.lm_solve_kernel = capture
+    lm_kernel.lm_ladder_kernel = capture
     try:
         process_batch(cfg, calib, batch)
         torch.cuda.synchronize()
     finally:
-        lm_kernel.lm_solve_kernel = kernel
+        lm_kernel.lm_ladder_kernel = kernel
     check(len(calls) == records["lm_solve"]["launches"],
-          f"{len(calls)} K3 calls captured, {records['lm_solve']['launches']} "
-          "counted on the default route")
-    names = ["stage 1", "stage 2"] + [f"stage 3 pull-back {m}"
-                                      for m in cfg.lm_stage3_pullbacks]
+          f"{len(calls)} K3 ladder calls captured, "
+          f"{records['lm_solve']['launches']} launches counted on the "
+          "default route")
     per = []
-    for i, (c, args) in enumerate(calls):
+    for c, args in calls:
         out = kernel(c, *args)
         ms = cuda_ms(torch, lambda: kernel(c, *args), 5)
-        rec = {"call": names[i] if i < len(names) else f"call {i}",
-               "lanes": int(args[4].shape[0]), "P": (args[4].shape[1] - 1) // 2,
-               "budget_cap": int(args[10]), "ms": ms,
-               **lm_bound(torch, c, args, out)}
+        # the iterations of every stage and rung
+        spent = (*out[:3], out[3] + out[8], *out[4:])
+        rec = {"call": "ladder", "lanes": int(args[4].shape[0]),
+               "P": (args[4].shape[1] - 1) // 2,
+               "budget_caps": [int(args[10]), int(args[12])],
+               "rung_lanes": out[9].tolist(), "ms": ms,
+               **lm_bound(torch, c, args[:10], spent)}
         per.append(rec)
-        say("K3", f"default route, {rec['call']}: {rec['lanes']} lanes at P="
-                  f"{rec['P']}, budget cap {rec['budget_cap']}: {ms:.4f} ms, "
-                  f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) ({card})")
+        say("K3", f"default route, ladder at P={rec['P']}: {rec['lanes']} "
+                  f"lanes, rungs' lanes {rec['rung_lanes']}, budget caps "
+                  f"{rec['budget_caps']}: {ms:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}) ({card})")
     records["lm_solve"]["route_launches"] = per
     say("K3", f"default route: {sum(r['ms'] for r in per):.4f} ms over "
               f"{len(per)} launches ({card})")
@@ -1002,6 +1120,11 @@ def check_bucket_run(torch, phase, tag, cfg, calib, batch, widths, kernel,
     for r in rows:
         check(r["lanes"] == 0 or r["launches"].get(kernel, 0) > 0,
               f"[{phase}] {tag}: P={r['P']} not solved by {kernel}")
+        # K3 at a compiled width runs a bucket's whole ladder in one launch
+        check(kernel != "lm_solve" or r["P"] > 15 or r["lanes"] == 0
+              or r["launches"].get(kernel) == 1,
+              f"[{phase}] {tag}: P={r['P']}: {r['launches'].get(kernel)} "
+              f"K3 launches, not one")
     return {"ms": ms, "failure_rate": rate, "buckets": rows,
             "differ_from_plain": diff}, out
 
@@ -2283,6 +2406,7 @@ def run(torch) -> int:
     del lanes, mf32
     check_lm(torch, cfg, cal, dev, records)
     check_lm_retry(torch, cfg, cal, dev)
+    check_lm_ladder(torch, cfg, cal, dev, records, card)
     check_fused_eval(torch, cfg, cal, dev, records)
     check_systems(torch, cfg, cal, dev, records, card)
     for route, flags in ROUTE_FLAGS.items():

@@ -1,5 +1,6 @@
 // K3: one whole bounded Levenberg-Marquardt stage per lane, a team of
-// threads per lane.
+// threads per lane, and on request the fit's whole retry ladder in the
+// same launch.
 //
 // Replaces npswf_tpu/fit/pallas_lm.py::_lm_kernel (wrappers _lm_call and
 // lm_solve_pallas). Per lane, until it converges or spends its budget:
@@ -19,12 +20,44 @@
 // Inactive lanes return u0, chi2 = 0, conv = false, n_iter = 0, edm = inf
 // and lambda = lambda0, as the XLA while-loop does.
 //
+// The ladder (prm.rungs > 0; fit/lm.py::fit_waveforms, whose host ladder
+// over lm_solve_plain is its plain version). After stage 1 a lane that is
+// active and did not converge climbs the rungs in the team that ran its
+// stage 1, each rung the same stage loop from a new start point:
+//   - rung 0, the stage-2 restart: from u0 with lam2 (lambda_init x 10) and
+//     the lane's stage-2 budget (budget2, at most max_iter2 iterations);
+//   - rung r > 0, the (r-1)-th pull-back m: from u1, the stage-1 end point,
+//     with each component that has |sin u1| > 0.95 and its parameter
+//     unmasked moved to asin(m * sign(sin u1)), with lam3 (lambda_init)
+//     and the stage-2 budget; where it converges its point and chi2 replace
+//     the stage-2 ones and the lane counts as converged, and its
+//     iterations add to the rungs' in any case.
+// The lane leaves the ladder at its first converged rung (the host's
+// ladder stops where no lane is left to retry: the same per lane). Stage 1
+// and the rungs are one loop around one stage runner (TeamLane::run), so
+// the kernel holds the registers of one stage. Between stages u0, u1 and
+// the rungs' best point wait in shared memory beside the team's other
+// arrays, each thread reading and writing only its own component
+// (M <= kTeam), and every thread keeps the rungs' chi2, flag and
+// iterations; the planes, y, w and the bounds stay in shared memory from
+// stage 1, so a rung reads from global memory only the lane's stage-2
+// budget and, for a pull-back, its value and the lane's parameter mask.
+// Lanes that enter no rung write the zeros the host ladder gives them.
+// Thread 0 of each lane adds one to tally[r] for every rung r the lane
+// enters, so the host reads the lanes of each rung in one read a batch
+// instead of a sync a rung. A retry thus needs no launch of its own, no
+// gather of its lanes and no host test between the rungs. What it costs: a
+// lane scheduled late in the launch that climbs every rung ends the launch
+// (up to 190 iterations in a row at the narrow budgets, 380 at the wide
+// ones).
+//
 // What bounds it on the card: latency, not bytes. A lane's iterations run
 // in sequence, each over 90 fit bins, M(M+1)/2 + M + 1 sums (21 at P = 2,
-// 351 at P = 12) and a Cholesky solve, and the retry stages hold a few
-// hundred to a few thousand lanes. What the design does about it:
+// 351 at P = 12) and a Cholesky solve; a lane that climbs the ladder runs
+// up to stage 1's and three rungs' budgets in a row while most lanes
+// finish after stage 1. What the design does about it:
 //   - a team, one warp (a cooperative-groups tile of 32 threads, one
-//     block), works each lane, so a retry spreads over the SMs and each
+//     block), works each lane, so the lanes spread over the SMs and each
 //     iteration's work is split 32 ways;
 //   - the system evaluation runs in two phases: (a) thread t takes fit bins
 //     t, t + 32, ... (four at a time in registers for P <= 4) and writes
@@ -70,7 +103,39 @@ namespace npswf {
 struct LMParams {
   double lam_up, lam_down, lam_min, lam_max, ftol, gtol, eps, gate_lo,
       gate_hi, sat, chol_eps;
-  int fit_lo, nk, n, max_iter;
+  // the ladder: the rungs' damping (stage 2, the pull-backs)
+  double lam2, lam3;
+  // rungs: 0 = stage 1 alone; else the stage-2 restart and rungs - 1
+  // pull-backs, max_iter2 iterations at most each
+  int fit_lo, nk, n, max_iter, max_iter2, rungs;
+};
+
+// A launch's arrays: stage 1's inputs and outputs, then the ladder's
+// (budget2, the rungs - 1 pull-back values in order and the rungs'
+// outputs, null when rungs = 0).
+template <typename T>
+struct LMArgs {
+  const T *coeffs, *x0, *yt, *wt, *u0, *lo, *hi, *pseed;
+  const uint8_t *pmask, *active;
+  const int* budget;
+  const T* lam0;
+  const int* budget2;
+  const double* pullback;
+  T *u, *chi2;
+  uint8_t* conv;
+  int* n_iter;
+  T *edm, *lam;
+  T *u2, *chi2_2;
+  uint8_t* conv2;
+  int *it2, *tally;
+};
+
+// Where a stage ends: its point is in slot cur of the team's uv.
+template <typename T>
+struct StageEnd {
+  T chi2, lam, edm;
+  int n_iter, cur;
+  bool conv;
 };
 
 constexpr int kTeam = 32;  // threads of a lane's team: one warp, one block
@@ -89,7 +154,8 @@ struct TeamMem {
                        kSeed = kMid + M, kPp = kSeed + M, kScale = kPp + M,
                        kB = kScale + M, kGv = kB + M, kDg = kGv + M,
                        kYv = kDg + M, kUu = kYv + M,
-                       kActp = kUu + P, kEnd = kActp + P;
+                       kActp = kUu + P, kU0 = kActp + P, kU1 = kU0 + M,
+                       kU2 = kU1 + M, kEnd = kU2 + M;
 
   T* at;   // the per-bin arrays
   T* fx;   // the fixed-size arrays
@@ -125,6 +191,9 @@ struct TeamMem {
   __device__ T* yv() const { return fx + kYv; }          // [M] forward solve
   __device__ T* uu() const { return fx + kUu; }          // [P] spline fractions
   __device__ T* actp() const { return fx + kActp; }      // [P] pulse masks
+  __device__ T* u0() const { return fx + kU0; }          // [M] the start point
+  __device__ T* u1() const { return fx + kU1; }          // [M] stage 1's end
+  __device__ T* u2() const { return fx + kU2; }          // [M] the rungs' best end
   __device__ int* base() const { return reinterpret_cast<int*>(fx + kEnd); }  // [P]
   __device__ uint8_t* ok() const { return reinterpret_cast<uint8_t*>(base() + P); }  // [M]
   __device__ uint8_t* dead() const { return ok() + M; }  // [M]
@@ -340,115 +409,194 @@ struct TeamLane {
     }
     tile.sync();
   }
+
+  // One LM stage from the point in slot 0 of uv, with damping lam and the
+  // lane's budget bud, at most max_iter iterations: the loop of the plain
+  // version. Every thread runs the decisions, so the result is uniform.
+  __device__ __forceinline__ StageEnd<T> run(T lam, int bud, int max_iter) {
+    // slot cur of sys and uv holds the current point, 1 - cur the trial
+    int cur = 0;
+    system(0);
+    T chi2 = s.sys()[MT + M];
+    const T ftol = T(prm.ftol), gtol = T(prm.gtol);
+    const T lam_up = T(prm.lam_up), lam_down = T(prm.lam_down);
+    const T lam_min = T(prm.lam_min), lam_max = T(prm.lam_max);
+    bool done = bud <= 0, conv = false;
+    int n_iter = 0;
+    T edm = T(INFINITY);
+    for (int it = 0; it < max_iter && !done; ++it) {
+      const T gc = gcrit(cur);
+      const bool conv_g = gc < gtol;
+      step(cur, lam);
+      system(1 - cur);
+      const T chi2_try = s.sys()[(1 - cur) * NE + MT + M];
+      const bool good = isfinite(chi2_try) && chi2_try < chi2;
+      const bool accept = good && !conv_g;
+      const T chi2_new = accept ? chi2_try : chi2;
+      if (accept) cur = 1 - cur;  // the trial becomes the current point
+      const T lam_new = clip(accept ? lam / lam_down : lam * lam_up, lam_min, lam_max);
+      const T rel_impr = (chi2 - chi2_new) / nan_max(chi2, T(1));
+      const bool conv_f = accept && rel_impr < ftol;
+      const bool conv_now = conv_g || conv_f;
+      n_iter += 1;
+      done = conv_now || n_iter >= bud;
+      conv = conv || conv_now;
+      chi2 = chi2_new;
+      lam = lam_new;
+      edm = gc;
+    }
+    return {chi2, lam, edm, n_iter, cur, conv};
+  }
 };
 
+// Teams an SM must hold at once at P <= 2, where most lanes are: 28 in
+// fp32 (72 registers a thread, as the single-stage kernel took), 21 in
+// fp64 (the compiler takes 80). Unbounded, the ladder's loop takes 96 and
+// 110 registers, and the SM holds a quarter fewer lanes: on an H100 the
+// P = 2 ladder over 69,120 lanes took 3.0 ms fp32 and 4.3 ms fp64 so,
+// against 2.8 and 4.1 bounded, a few spilled bytes included. Wider lanes
+// take what the compiler gives them.
 template <typename T, int P>
-__global__ void __launch_bounds__(kTeam)
-lm_kernel(const T* __restrict__ coeffs, const T* __restrict__ x0,
-          const T* __restrict__ yt, const T* __restrict__ wt,
-          const T* __restrict__ u0, const T* __restrict__ lo,
-          const T* __restrict__ hi, const T* __restrict__ pseed,
-          const uint8_t* __restrict__ pmask, const uint8_t* __restrict__ active,
-          const int* __restrict__ budget, const T* __restrict__ lam0,
-          T* __restrict__ u_out, T* __restrict__ chi2_out,
-          uint8_t* __restrict__ conv_out, int* __restrict__ niter_out,
-          T* __restrict__ edm_out, T* __restrict__ lam_out, LMParams prm) {
+constexpr int kMinTeams = P > 2 ? 1 : (sizeof(T) == 4 ? 28 : 21);
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kTeam, (kMinTeams<T, P>))
+lm_kernel(const LMArgs<T> a, const LMParams prm) {
   constexpr int M = 1 + 2 * P;
-  constexpr int MT = M * (M + 1) / 2;
   extern __shared__ __align__(16) unsigned char smem[];
   auto tile = cg::tiled_partition<kTeam>(cg::this_thread_block());
   const int tr = tile.thread_rank();
   const int lane = blockIdx.x;
   const size_t row = (size_t)lane * M;
-  T lam = lam0[lane];
-  if (!active[lane]) {
-    for (int i = tr; i < M; i += kTeam) u_out[row + i] = u0[row + i];
+  // thread tr < M handles component tr of the lane's vectors (M <= kTeam)
+  const bool comp = tr < M;
+  const bool ladder = prm.rungs > 0;
+  if (!a.active[lane]) {
+    if (comp) a.u[row + tr] = a.u0[row + tr];
     if (tr == 0) {
-      chi2_out[lane] = T(0);
-      conv_out[lane] = 0;
-      niter_out[lane] = 0;
-      edm_out[lane] = T(INFINITY);
-      lam_out[lane] = lam;
+      a.chi2[lane] = T(0);
+      a.conv[lane] = 0;
+      a.n_iter[lane] = 0;
+      a.edm[lane] = T(INFINITY);
+      a.lam[lane] = a.lam0[lane];
+    }
+    if (ladder) {
+      if (comp) a.u2[row + tr] = T(0);
+      if (tr == 0) {
+        a.chi2_2[lane] = T(0);
+        a.conv2[lane] = 0;
+        a.it2[lane] = 0;
+      }
     }
     return;
   }
   const TeamMem<T, P> s(smem, prm.nk);
-  const T* coef = coeffs + (size_t)lane * 4 * kSeg;
+  const T* coef = a.coeffs + (size_t)lane * 4 * kSeg;
   for (int i = tr; i < 4 * kSeg; i += kTeam) s.planes()[i] = coef[i];
   for (int k = tr; k < prm.nk; k += kTeam) {
-    s.y()[k] = yt[(size_t)k * prm.n + lane];
-    s.w()[k] = wt[(size_t)k * prm.n + lane];
+    s.y()[k] = a.yt[(size_t)k * prm.n + lane];
+    s.w()[k] = a.wt[(size_t)k * prm.n + lane];
   }
-  for (int i = tr; i < M; i += kTeam) {
-    const T l = lo[row + i], h = hi[row + i];
-    s.half()[i] = T(0.5) * (h - l);
-    s.mid()[i] = T(0.5) * (h + l);
-    s.seed()[i] = pseed[row + i];
-    s.ok()[i] = pmask[row + i] != 0 && s.half()[i] > T(0);
-    s.uv()[i] = u0[row + i];
+  if (comp) {
+    const T l = a.lo[row + tr], h = a.hi[row + tr];
+    s.half()[tr] = T(0.5) * (h - l);
+    s.mid()[tr] = T(0.5) * (h + l);
+    s.seed()[tr] = a.pseed[row + tr];
+    s.ok()[tr] = a.pmask[row + tr] != 0 && s.half()[tr] > T(0);
+    s.u0()[tr] = s.uv()[tr] = a.u0[row + tr];
+    s.u2()[tr] = T(0);
   }
-  for (int q = tr; q < P; q += kTeam) s.actp()[q] = pmask[row + 2 + 2 * q] ? T(1) : T(0);
+  for (int q = tr; q < P; q += kTeam) s.actp()[q] = a.pmask[row + 2 + 2 * q] ? T(1) : T(0);
   tile.sync();
 
   using Lane = TeamLane<T, P, decltype(tile)>;
-  Lane L{tile, s, Owned<M>(tr), prm, tr, x0[lane]};
-  // slot cur of sys and uv holds the current point, 1 - cur the trial
-  int cur = 0;
-  L.system(0);
-  T chi2 = s.sys()[MT + M];
-  const int bud = budget[lane];
-  const T ftol = T(prm.ftol), gtol = T(prm.gtol);
-  const T lam_up = T(prm.lam_up), lam_down = T(prm.lam_down);
-  const T lam_min = T(prm.lam_min), lam_max = T(prm.lam_max);
-  bool done = bud <= 0, conv = false;
-  int n_iter = 0;
-  T edm = T(INFINITY);
-  for (int it = 0; it < prm.max_iter && !done; ++it) {
-    const T gc = L.gcrit(cur);
-    const bool conv_g = gc < gtol;
-    L.step(cur, lam);
-    L.system(1 - cur);
-    const T chi2_try = s.sys()[(1 - cur) * Lane::NE + MT + M];
-    const bool good = isfinite(chi2_try) && chi2_try < chi2;
-    const bool step = good && !conv_g;
-    const T chi2_new = step ? chi2_try : chi2;
-    if (step) cur = 1 - cur;  // the trial becomes the current point
-    const T lam_new = clip(step ? lam / lam_down : lam * lam_up, lam_min, lam_max);
-    const T rel_impr = (chi2 - chi2_new) / nan_max(chi2, T(1));
-    const bool conv_f = step && rel_impr < ftol;
-    const bool conv_now = conv_g || conv_f;
-    n_iter += 1;
-    done = conv_now || n_iter >= bud;
-    conv = conv || conv_now;
-    chi2 = chi2_new;
-    lam = lam_new;
-    edm = gc;
+  Lane L{tile, s, Owned<M>(tr), prm, tr, a.x0[lane]};
+  // r = -1 is stage 1, r >= 0 the rungs; between stages each thread reads
+  // and writes only its own component of uv, u0, u1 and u2, so the next
+  // stage's start point needs one tile.sync
+  T chi2_2 = T(0);
+  bool conv2 = false;
+  int it2 = 0;
+  for (int r = -1; r < prm.rungs; ++r) {
+    T lam;
+    int bud, max_iter;
+    if (r < 0) {
+      lam = a.lam0[lane];
+      bud = a.budget[lane];
+      max_iter = prm.max_iter;
+    } else {
+      lam = T(r == 0 ? prm.lam2 : prm.lam3);
+      bud = a.budget2[lane];
+      max_iter = prm.max_iter2;
+      if (tr == 0) atomicAdd(a.tally + r, 1);
+      if (comp) {
+        T start = s.u0()[tr];
+        if (r > 0) {
+          // the host's pull-back: pullback x sign(sin u1) in T, then asin
+          const T u1 = s.u1()[tr];
+          const T sn = sin(u1);
+          const T m = T(a.pullback[r - 1]) * (sn > T(0) ? T(1) : T(-1));
+          start = (fabs(sn) > T(0.95) && a.pmask[row + tr]) ? asin(m) : u1;
+        }
+        s.uv()[tr] = start;
+      }
+      tile.sync();
+    }
+    const StageEnd<T> e = L.run(lam, bud, max_iter);
+    const T u_end = comp ? s.uv()[e.cur * M + tr] : T(0);
+    if (r < 0) {
+      if (comp) {
+        a.u[row + tr] = u_end;
+        s.u1()[tr] = u_end;
+      }
+      if (tr == 0) {
+        a.chi2[lane] = e.chi2;
+        a.conv[lane] = e.conv ? 1 : 0;
+        a.n_iter[lane] = e.n_iter;
+        a.edm[lane] = e.edm;
+        a.lam[lane] = e.lam;
+      }
+      if (!ladder) return;
+      if (e.conv) break;
+    } else {
+      if (r == 0 || e.conv) {
+        if (comp) s.u2()[tr] = u_end;
+        chi2_2 = e.chi2;
+        conv2 = e.conv;
+      }
+      it2 += e.n_iter;
+      if (conv2) break;
+    }
   }
-  for (int i = tr; i < M; i += kTeam) u_out[row + i] = s.uv()[cur * M + i];
+  if (comp) a.u2[row + tr] = s.u2()[tr];
   if (tr == 0) {
-    chi2_out[lane] = chi2;
-    conv_out[lane] = conv ? 1 : 0;
-    niter_out[lane] = n_iter;
-    edm_out[lane] = edm;
-    lam_out[lane] = lam;
+    a.chi2_2[lane] = chi2_2;
+    a.conv2[lane] = conv2 ? 1 : 0;
+    a.it2[lane] = it2;
   }
 }
 
 // Launch one block a lane with the team's shared memory; above 48 KB a
 // block the kernel's limit is raised (allow_smem), and a launch the card
-// cannot give its shared memory fails (no fallback).
+// cannot give its shared memory fails (no fallback). in: coeffs, x0, yt,
+// wt, u0, lo, hi, pseed, pmask, active, budget, lam0, budget2, pullback;
+// out: u, chi2, conv, n_iter, edm, lam, u2, chi2_2, conv2, it2, tally (the
+// last five, budget2 and pullback read only where prm.rungs > 0).
 template <typename T, int P>
 cudaError_t launch(const void* const* in, void* const* out,
                    const LMParams& prm, cudaStream_t st) {
   const size_t smem = TeamMem<T, P>::bytes(prm.nk);
   const cudaError_t e = allow_smem(lm_kernel<T, P>, smem);
   if (e != cudaSuccess) return e;
-  lm_kernel<T, P><<<prm.n, kTeam, smem, st>>>(
+  const LMArgs<T> a{
       (const T*)in[0], (const T*)in[1], (const T*)in[2], (const T*)in[3],
       (const T*)in[4], (const T*)in[5], (const T*)in[6], (const T*)in[7],
       (const uint8_t*)in[8], (const uint8_t*)in[9], (const int*)in[10],
-      (const T*)in[11], (T*)out[0], (T*)out[1], (uint8_t*)out[2],
-      (int*)out[3], (T*)out[4], (T*)out[5], prm);
+      (const T*)in[11], (const int*)in[12], (const double*)in[13],
+      (T*)out[0], (T*)out[1], (uint8_t*)out[2], (int*)out[3], (T*)out[4],
+      (T*)out[5], (T*)out[6], (T*)out[7], (uint8_t*)out[8], (int*)out[9],
+      (int*)out[10]};
+  lm_kernel<T, P><<<prm.n, kTeam, smem, st>>>(a, prm);
   return cudaGetLastError();
 }
 

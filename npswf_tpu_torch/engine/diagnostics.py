@@ -26,7 +26,7 @@ def block_diagnostics(cfg: NPSConfig, signal: torch.Tensor) -> Dict[str, torch.T
     dev = signal.device
     it = torch.arange(T, device=dev)
     in_win = (it > BINMIN) & (it < BINMAX)
-    nwin = int(in_win.sum())
+    nwin = len(range(BINMIN + 1, min(BINMAX, T)))  # in_win's count, no sync
     nbkg = T - nwin
 
     integ = signal.sum(dim=-1)

@@ -36,7 +36,7 @@ from npswf_tpu_torch import kernels
 from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch.engine.diagnostics import block_diagnostics
 from npswf_tpu_torch.fit.errors import error_model
-from npswf_tpu_torch.fit.lm import FitInputs, fit_waveforms
+from npswf_tpu_torch.fit.lm import FitInputs, count_rung_lanes, fit_waveforms
 from npswf_tpu_torch.ops.cluster_gate import cluster_gate
 from npswf_tpu_torch.ops.peak_search import find_pulses
 from npswf_tpu_torch.parallel.axis import Axis, require_axis
@@ -128,7 +128,9 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
     ``kernels.counts`` takes the call, each host sync by its site, the
     lanes handed to the search (``engine.search_lanes``), and for each
     bucket the lanes it fits (``fit.stage1_lanes``) and the lanes it hands
-    to ``fit_waveforms`` (``fit.launched_lanes``: every lane in place).
+    to ``fit_waveforms`` (``fit.launched_lanes``: every lane in place);
+    where K3 ran a bucket's ladder whole, the lanes its rungs retried
+    (``fit.rungs``, ``fit.retry_lanes``) come back in one read at the end.
     """
     if block_axis is not None or block_shards > 1:
         require_axis(block_axis, f"process_batch over {block_shards} block "
@@ -220,6 +222,7 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
         n_iter_lanes = torch.zeros((N,), dtype=torch.int32, device=dev)
         fitted = torch.zeros((N,), dtype=torch.bool, device=dev)
         n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        rung_lanes = []   # the one-launch ladders' rung tallies, on the device
         buckets = [(small_active, cap_all, Ps)]
         if P > Ps:
             # fit_capacity == 0 means "fit every block": the wide bucket is
@@ -262,6 +265,8 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
                     active=mask[lanes],
                     timeref=timeref[sel_blocks])
                 fres = fit_waveforms(cfg, inp, model_name, plain=plain)
+                if fres.rung_lanes is not None:
+                    rung_lanes.append(fres.rung_lanes)
                 pf = torch.cat([fres.params,
                                 torch.zeros((fres.params.shape[0], 2 * (P - Pb)),
                                             dtype=dtype, device=dev)], dim=1)
@@ -311,8 +316,6 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
             h1 = t_rel - timerefacc + corr[:, None] / cfg.dt            # ref :994
 
         with span("engine.diagnostics"):
-            # block_diagnostics reads its window's width back (a host sync)
-            kernels.count("sync.engine.diagnostics_window")
             diag = block_diagnostics(cfg, signal)
             enertot, integtot = diag["enertot"], diag["integtot"]
             if block_axis is not None:
@@ -324,6 +327,11 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
             n_succ = (fitted & converged).sum().to(torch.int32)
             n_fail = (fitted & ~converged).sum().to(torch.int32)
             n_high = (flat_present & (npulse > P - 2)).sum().to(torch.int32)
+            if rung_lanes:
+                # the rung tallies of the fits K3 ran whole come back to the
+                # host (a sync) once the call's work is queued
+                kernels.count("sync.engine.rung_tallies")
+                count_rung_lanes(torch.cat(rung_lanes).tolist())
         if reduce_axes:
             counts = torch.stack([n_succ, n_fail, n_dropped.to(torch.int32),
                                   n_high, n_search_dropped])

@@ -10,7 +10,10 @@ reference, TEST_2.C:691-791). Every fit lane is solved at once:
   from the seeds with lambda0 * 10 and the stage-2 budgets; stage 3 pulls
   bound-saturated components of the stage-1 end state back to sin(u) = +-m
   for each rung m in ``lm_stage3_pullbacks``; still-failed lanes report
-  their seeds.
+  their seeds. Where K3 serves the bucket on the card at a compiled width
+  the whole ladder is one K3 launch (``lm_kernel.lm_ladder_kernel``);
+  elsewhere the host runs the rungs (``host_ladder``), each over the lanes
+  it retries.
 
 ``lm_solve`` routes as the reference package does: a spline solve within
 ``pallas_lm_max_pulses`` runs whole on the K3 kernel (fit/lm_kernel.py)
@@ -59,6 +62,11 @@ class FitResult(NamedTuple):
     converged_stage1: torch.Tensor  # [N] bool — succeeded without retry
     n_iter: torch.Tensor       # [N] iterations consumed
     edm: torch.Tensor          # [N] final expected-distance-to-minimum proxy
+    # [R] int32 on the card where K3 ran the ladder whole: the lanes each
+    # rung after stage 1 solved again (0 for a rung that did not run), for
+    # process_batch to fold into kernels.counts with count_rung_lanes; None
+    # where the host ladder counted its rungs itself
+    rung_lanes: Optional[torch.Tensor] = None
 
 
 # |sin(u)| above this counts as "on its bound" for the KKT convergence mask
@@ -246,18 +254,48 @@ def _system_variant(cfg: NPSConfig, model: WaveformModel, P: int) -> str:
     return "model"
 
 
+def _ladder_fused(cfg: NPSConfig, model: WaveformModel, P: int,
+                  device: torch.device) -> bool:
+    """Whether a bucket's whole ladder runs as one K3 launch: its lanes are
+    on the card and K3 serves them at a compiled width (P <=
+    LM_COMPILED_PULSES, csrc/lm.cuh kMaxP). Elsewhere K3's wrapper runs its
+    plain version, and the host ladder over ``lm_solve`` is the launch's."""
+    from npswf_tpu_torch.fit.lm_kernel import LM_COMPILED_PULSES
+    return (device.type == "cuda" and _kernel_lm_active(cfg, model, P)
+            and P <= LM_COMPILED_PULSES)
+
+
+def ladder_rungs(cfg: NPSConfig) -> int:
+    """The rungs after stage 1: the stage-2 restart and each pull-back."""
+    return 1 + (len(cfg.lm_stage3_pullbacks) if cfg.lm_stage3 else 0)
+
+
+def count_rung_lanes(values) -> None:
+    """Fold rung tallies on the host (``host_ladder``'s, or
+    ``FitResult.rung_lanes`` of any number of fits read back, as ints) into
+    ``kernels.counts``: a rung that retried lanes is one of ``fit.rungs``,
+    and its lanes count in ``fit.retry_lanes``."""
+    values = [int(v) for v in values]
+    kernels.count("fit.rungs", sum(1 for v in values if v))
+    kernels.count("fit.retry_lanes", sum(values))
+
+
+def _aux(cfg: NPSConfig, model: WaveformModel, inp: FitInputs):
+    base_aux = {"coeffs": inp.coeffs, "x0": inp.x0,
+                "timeref": (inp.timeref if inp.timeref is not None
+                            else torch.zeros_like(inp.x0))}
+    for k, v in cfg.model_aux:
+        base_aux[k] = torch.full_like(inp.x0, v)
+    return model.prepare_aux(cfg, base_aux)
+
+
 def lm_solve(cfg: NPSConfig, model: WaveformModel, inp: FitInputs, u0, lo, hi,
              p_seed, param_mask, active, max_iter: int, lam0,
              iter_budget=None, plain: bool = False):
     """Run LM from internal params u0 on ``active`` lanes.
     Returns (u, chi2, converged, n_iter, edm, lam)."""
     w = 1.0 / inp.sigma
-    base_aux = {"coeffs": inp.coeffs, "x0": inp.x0,
-                "timeref": (inp.timeref if inp.timeref is not None
-                            else torch.zeros_like(inp.x0))}
-    for k, v in cfg.model_aux:
-        base_aux[k] = torch.full_like(inp.x0, v)
-    aux = model.prepare_aux(cfg, base_aux)
+    aux = _aux(cfg, model, inp)
     P = inp.t_seed.shape[1]
     if _kernel_lm_active(cfg, model, P):
         from npswf_tpu_torch.fit.lm_kernel import lm_solve_kernel, lm_solve_plain
@@ -288,28 +326,27 @@ def _prepare(cfg: NPSConfig, inp: FitInputs):
     return lo, hi, p_seed, pm, u0, s1_budget, s2_budget
 
 
-def fit_waveforms(cfg: NPSConfig, inp: FitInputs, model_name: str = "",
-                  plain: bool = False) -> FitResult:
-    """The escalated batched fit: stage 1, the stage-2 seed restart and the
-    stage-3 pull-back rungs, merged into one FitResult.
+def host_ladder(cfg: NPSConfig, solve, lanes, u0, pm, active, s1_cap: int,
+                s1_budget, s2_cap: int, s2_budget):
+    """Stage 1, then each rung of the ladder on the host over the lanes it
+    retries.
 
+    ``solve(lanes, u_start, active, max_iter, lam0, budget)`` runs one LM
+    stage and returns ``lm_solve``'s tuple; ``lanes`` is a tuple of the
+    per-lane tensors (or None) it reads besides, gathered for each rung.
     Stage 1 is the span ``fit.stage1`` and each rung (stage 2, each
-    pull-back) a ``fit.retry``; ``kernels.counts`` takes the rungs, the
-    lanes each retries and the ladder's host syncs by site."""
-    model = get_model(model_name or cfg.model_name)
-    N = inp.t_seed.shape[0]
-    lo, hi, p_seed, pm, u0, s1_budget, s2_budget = _prepare(cfg, inp)
-    s1_cap = max(cfg.lm_max_iter_stage1, cfg.lm_stage1_wide)
-    s2_cap = max(cfg.lm_max_iter_stage2, cfg.lm_stage2_wide)
-
+    pull-back) a ``fit.retry``; each rung's test and select are host syncs,
+    counted by site. Returns (u1, chi2_1, conv1, it1, edm1, u2, chi2_2,
+    conv2, it2, rung_lanes), rung_lanes a list of ``ladder_rungs(cfg)``
+    ints: the lanes each rung retried, 0 where it did not run."""
     # stage 1 runs as one piece (no tier, no chunking: both are layouts of
     # the same row-wise iteration)
     with span("fit.stage1"):
-        u1, chi2_1, conv1, it1, edm1, _ = lm_solve(
-            cfg, model, inp, u0, lo, hi, p_seed, pm, inp.active, s1_cap,
-            cfg.lm_lambda_init, s1_budget, plain=plain)
+        u1, chi2_1, conv1, it1, edm1, _ = solve(
+            lanes, u0, active, s1_cap, cfg.lm_lambda_init, s1_budget)
+    rung_lanes = [0] * ladder_rungs(cfg)
 
-    def retry(mask, start_u, lam0):
+    def retry(rung, mask, start_u, lam0):
         """Re-solve the ``mask`` lanes from ``start_u`` with the stage-2
         budgets. The reference package walks them in chunks of N/32 and N/64;
         chunking is layout only (the LM update is row-wise), so every masked
@@ -317,33 +354,31 @@ def fit_waveforms(cfg: NPSConfig, inp: FitInputs, model_name: str = "",
         with span("fit.retry"):
             sel = torch.nonzero(mask).squeeze(1)
             kernels.count("sync.fit.retry_select")
-            kernels.count("fit.rungs")
-            kernels.count("fit.retry_lanes", sel.numel())
+            rung_lanes[rung] = sel.numel()
 
             def take(a):
                 return None if a is None else a.index_select(0, sel)
-            inp2 = FitInputs(*(take(v) for v in inp))
-            u_c, chi2_c, conv_c, it_c, _, _ = lm_solve(
-                cfg, model, inp2, take(start_u), take(lo), take(hi),
-                take(p_seed), take(pm), take(mask), s2_cap, lam0,
-                take(s2_budget), plain=plain)
+            u_c, chi2_c, conv_c, it_c, _, _ = solve(
+                tuple(take(v) for v in lanes), take(start_u), take(mask),
+                s2_cap, lam0, take(s2_budget))
             u2 = torch.zeros_like(u1).index_copy(0, sel, u_c)
             chi2_2 = torch.zeros_like(chi2_1).index_copy(0, sel, chi2_c)
             conv2 = torch.zeros_like(conv1).index_copy(0, sel, conv_c)
             it2 = torch.zeros_like(it1).index_copy(0, sel, it_c)
             return u2, chi2_2, conv2, it2
 
-    failed1 = inp.active & ~conv1
+    failed1 = active & ~conv1
     # each retry runs only when some lane needs it (a host sync)
     kernels.count("sync.fit.ladder_any")
     if bool(failed1.any()):
-        u2, chi2_2, conv2, it2 = retry(failed1, u0, cfg.lm_lambda_init * 10.0)
+        u2, chi2_2, conv2, it2 = retry(0, failed1, u0,
+                                       cfg.lm_lambda_init * 10.0)
     else:
         u2, chi2_2 = torch.zeros_like(u1), torch.zeros_like(chi2_1)
         conv2, it2 = torch.zeros_like(conv1), torch.zeros_like(it1)
 
     if cfg.lm_stage3:
-        for pullback in cfg.lm_stage3_pullbacks:
+        for rung, pullback in enumerate(cfg.lm_stage3_pullbacks, 1):
             failed2 = failed1 & ~conv2
             kernels.count("sync.fit.ladder_any")
             if not bool(failed2.any()):
@@ -353,15 +388,60 @@ def fit_waveforms(cfg: NPSConfig, inp: FitInputs, model_name: str = "",
             u_pb = torch.where(sat & pm,
                                torch.asin(float(pullback) * torch.sign(sinu1)),
                                u1)
-            u3, chi2_3, conv3, it3 = retry(failed2, u_pb, cfg.lm_lambda_init)
+            u3, chi2_3, conv3, it3 = retry(rung, failed2, u_pb,
+                                           cfg.lm_lambda_init)
             use3 = failed2 & conv3
             u2 = torch.where(use3[:, None], u3, u2)
             chi2_2 = torch.where(use3, chi2_3, chi2_2)
             conv2 = conv2 | use3
             it2 = it2 + torch.where(failed2, it3, 0)
+    return u1, chi2_1, conv1, it1, edm1, u2, chi2_2, conv2, it2, rung_lanes
 
+
+def fit_waveforms(cfg: NPSConfig, inp: FitInputs, model_name: str = "",
+                  plain: bool = False) -> FitResult:
+    """The escalated batched fit: stage 1, the stage-2 seed restart and the
+    stage-3 pull-back rungs, merged into one FitResult.
+
+    Where K3 serves the bucket on the card at a compiled width
+    (``_ladder_fused``) and ``plain`` is off, the whole ladder is one K3
+    launch under the span ``fit.ladder`` (``kernels.counts``:
+    ``fit.ladder_fused``), and the result's ``rung_lanes`` holds the lanes
+    each rung retried, on the device, for the caller to fold with
+    ``count_rung_lanes`` where it next reads the device back
+    (``process_batch`` does, once a call). Elsewhere ``host_ladder`` runs
+    it (``fit.ladder_host``), and its rungs are counted at once."""
+    model = get_model(model_name or cfg.model_name)
+    lo, hi, p_seed, pm, u0, s1_budget, s2_budget = _prepare(cfg, inp)
+    s1_cap = max(cfg.lm_max_iter_stage1, cfg.lm_stage1_wide)
+    s2_cap = max(cfg.lm_max_iter_stage2, cfg.lm_stage2_wide)
+    P = inp.t_seed.shape[1]
+    if not plain and _ladder_fused(cfg, model, P, inp.y.device):
+        from npswf_tpu_torch.fit.lm_kernel import lm_ladder_kernel
+        kernels.count("fit.ladder_fused")
+        with span("fit.ladder"):
+            aux = _aux(cfg, model, inp)
+            *stages, rung_lanes = lm_ladder_kernel(
+                cfg, aux["coeffs_pad"], inp.x0, inp.y, 1.0 / inp.sigma, u0,
+                lo, hi, p_seed, pm, inp.active, s1_cap, s1_budget, s2_cap,
+                s2_budget)
+    else:
+        kernels.count("fit.ladder_host")
+
+        def solve(lanes, u, active, max_iter, lam0, budget):
+            return lm_solve(cfg, model, FitInputs(*lanes[:-4]), u,
+                            *lanes[-4:], active, max_iter, lam0, budget,
+                            plain=plain)
+        *stages, rungs = host_ladder(
+            cfg, solve, tuple(inp) + (lo, hi, p_seed, pm), u0, pm,
+            inp.active, s1_cap, s1_budget, s2_cap, s2_budget)
+        count_rung_lanes(rungs)
+        rung_lanes = None
+    u1, chi2_1, conv1, it1, edm1, u2, chi2_2, conv2, it2 = stages
+    failed1 = inp.active & ~conv1
     return _combine(cfg, inp, u1, chi2_1, conv1, it1, edm1, failed1, u2,
-                    chi2_2, conv2, it2, lo, hi, p_seed, pm)
+                    chi2_2, conv2, it2, lo, hi, p_seed, pm)._replace(
+                        rung_lanes=rung_lanes)
 
 
 def _combine(cfg, inp, u1, chi2_1, conv1, it1, edm1, failed1, u2, chi2_2,

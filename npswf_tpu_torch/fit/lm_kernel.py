@@ -1,10 +1,13 @@
-"""K3 wrapper: one whole LM stage per lane on the card (csrc/lm.cuh, lm.cu,
-lm_wide.cu).
+"""K3 wrappers: one whole LM stage per lane on the card (csrc/lm.cuh, lm.cu,
+lm_wide.cu), or the fit's whole retry ladder in one launch.
 
 Replaces npswf_tpu/fit/pallas_lm.py::_lm_kernel (wrappers ``_lm_call`` and
-``lm_solve_pallas``), with the signature and return of
-``lm_solve_pallas``. CPU tensors go to the plain version, ``lm_solve_plain``; CUDA
-tensors launch the kernel or raise.
+``lm_solve_pallas``): ``lm_solve_kernel`` with the signature and return of
+``lm_solve_pallas``. ``lm_ladder_kernel`` runs stage 1, the stage-2
+restart and the pull-back rungs of ``fit.lm.fit_waveforms`` in one launch
+at the compiled widths. CPU tensors go to the plain versions,
+``lm_solve_plain`` and ``lm_ladder_plain``; CUDA tensors launch the kernel
+or raise.
 """
 from __future__ import annotations
 
@@ -17,13 +20,17 @@ import torch
 from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch import kernels
 from npswf_tpu_torch.fit.eval_kernel import SEG, system_plain_body
-from npswf_tpu_torch.fit.lm import CHOL_EPS, SAT_THRESH, lm_loop
+from npswf_tpu_torch.fit.lm import (CHOL_EPS, SAT_THRESH, host_ladder,
+                                    ladder_rungs, lm_loop)
 
 # Widths 1..LM_COMPILED_PULSES have an instantiation each (csrc/lm.cuh,
 # kMaxP: one row of the M x M system a thread of the 32-thread team); wider
 # ones run lm_wide.cu with P at run time, a block of 128 or 256 threads a
 # lane, up to lm_max_pulses. 12 is the default pallas_lm_max_pulses.
 LM_COMPILED_PULSES = 15
+# the pull-back values of a ladder launch on each device, fp64, made once
+# (a copy from the host waits for the card)
+_PULLBACKS = {}
 
 
 def lm_max_pulses(K: int, dtype: torch.dtype, device=None) -> int:
@@ -58,6 +65,113 @@ def lm_solve_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
                    lam0, iter_budget)
 
 
+def lm_ladder_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi,
+                    p_seed, param_mask, active, s1_cap: int, s1_budget,
+                    s2_cap: int, s2_budget):
+    """The plain version of the ladder launch, on any device: the host
+    ladder (``fit.lm.host_ladder``) over ``lm_solve_plain``, each rung on
+    the lanes it retries. Returns ``lm_ladder_kernel``'s tuple."""
+    lanes = (coeffs_pad, x0, y, w, lo, hi, p_seed, param_mask)
+
+    def solve(lanes_, u, active_, max_iter, lam0, budget):
+        c, x, y_, w_, lo_, hi_, ps, pm = lanes_
+        return lm_solve_plain(cfg, c, x, y_, w_, u, lo_, hi_, ps, pm, active_,
+                              max_iter, lam0, budget)
+    *stages, rungs = host_ladder(cfg, solve, lanes, u0, param_mask, active,
+                                 s1_cap, s1_budget, s2_cap, s2_budget)
+    return (*stages, torch.tensor(rungs, dtype=torch.int32, device=u0.device))
+
+
+def _launch(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
+            param_mask, active, max_iter: int, lam0, iter_budget,
+            ladder=None):
+    """Check the arrays and launch K3 once: one stage, or with ``ladder``
+    = (s2_cap, s2_budget) the whole ladder. Returns the outputs: (u, chi2,
+    conv, n_iter, edm, lam), then with ``ladder`` (u2, chi2_2, conv2, it2,
+    rung_lanes)."""
+    N, M = u0.shape
+    P = (M - 1) // 2
+    dev, dt = u0.device, u0.dtype
+    K = y.shape[1]
+    lib = kernels.library()
+    if ladder is not None and not 1 <= P <= LM_COMPILED_PULSES:
+        raise ValueError(f"the LM ladder launch takes 1..{LM_COMPILED_PULSES}"
+                         f" pulses, not {P} (M = {M})")
+    # widths above the compiled ones must fit a block (asked once a card)
+    if (M != 1 + 2 * P or P < 1 or (P > LM_COMPILED_PULSES
+                                    and P > lm_max_pulses(K, dt, dev))):
+        raise ValueError(f"LM kernel takes 1..{lm_max_pulses(K, dt, dev)} "
+                         f"pulses over {K} fit bins in {dt} (a lane's arrays "
+                         f"in one block's shared memory), not {P} (M = {M})")
+    kernels.require(coeffs_pad, "coeffs_pad", (N, 4, SEG), dt, dev)
+    kernels.require(x0, "x0", (N,), dt, dev)
+    for name, t in (("u0", u0), ("lo", lo), ("hi", hi), ("p_seed", p_seed)):
+        kernels.require(t, name, (N, M), dt, dev)
+    for name, t in (("y", y), ("w", w)):
+        if tuple(t.shape) != (N, K) or t.dtype != dt or t.device != dev:
+            raise ValueError(f"{name} must be [{N}, {K}] {dt} on {dev}")
+    if tuple(param_mask.shape) != (N, M) or tuple(active.shape) != (N,):
+        raise ValueError("param_mask must be [N, M] and active [N]")
+
+    def budget_of(b, cap):
+        if b is None:
+            return torch.full((N,), cap, dtype=torch.int32, device=dev)
+        return torch.clamp(b.to(device=dev, dtype=torch.int32),
+                           max=cap).contiguous()
+    budget = budget_of(iter_budget, max_iter)
+    lam0_t = (torch.zeros((N,), dtype=dt, device=dev) + lam0).contiguous()
+    # lanes-minor fit data ([K, N]); each lane's team stages
+    # its own bins into shared memory once
+    yt = y.t().contiguous()
+    wt = w.t().contiguous()
+    pmask = param_mask.to(torch.uint8).contiguous()
+    act = active.to(torch.uint8).contiguous()
+    outs = [torch.empty((N, M), dtype=dt, device=dev),
+            torch.empty((N,), dtype=dt, device=dev),
+            torch.empty((N,), dtype=torch.uint8, device=dev),
+            torch.empty((N,), dtype=torch.int32, device=dev),
+            torch.empty((N,), dtype=dt, device=dev),
+            torch.empty((N,), dtype=dt, device=dev)]
+    budget2 = pullbacks = None
+    rungs, max_iter2 = 0, 0
+    if ladder is not None:
+        max_iter2, b2 = ladder
+        budget2 = budget_of(b2, max_iter2)
+        rungs = ladder_rungs(cfg)
+        if rungs > 1:
+            key = (dev, tuple(map(float, cfg.lm_stage3_pullbacks)))
+            pullbacks = _PULLBACKS.get(key)
+            if pullbacks is None:
+                pullbacks = _PULLBACKS[key] = torch.tensor(
+                    key[1], dtype=torch.float64, device=dev)
+        outs += [torch.empty((N, M), dtype=dt, device=dev),
+                 torch.empty((N,), dtype=dt, device=dev),
+                 torch.empty((N,), dtype=torch.uint8, device=dev),
+                 torch.empty((N,), dtype=torch.int32, device=dev),
+                 torch.zeros((rungs,), dtype=torch.int32, device=dev)]
+    if N > 0:
+        ins = (coeffs_pad, x0, yt, wt, u0, lo, hi, p_seed, pmask, act, budget,
+               lam0_t, budget2, pullbacks)
+        in_ptrs = (ctypes.c_void_p * len(ins))(
+            *(None if t is None else t.data_ptr() for t in ins))
+        out_ptrs = (ctypes.c_void_p * 11)(*(t.data_ptr() for t in outs))
+        eps = float(torch.finfo(dt).eps)
+        code = lib.npswf_lm_solve(
+            kernels.dtype_code(dt), P, in_ptrs, out_ptrs, N, K,
+            cfg.fit_lo_bin, int(max_iter), int(max_iter2), rungs,
+            float(cfg.lm_lambda_up), float(cfg.lm_lambda_down),
+            float(cfg.lm_lambda_min), float(cfg.lm_lambda_max),
+            max(cfg.lm_ftol, 100.0 * eps), max(cfg.lm_gtol, 100.0 * eps), eps,
+            float(cfg.spline_gate_lo), float(cfg.ntime - 1), SAT_THRESH,
+            CHOL_EPS, float(cfg.lm_lambda_init) * 10.0,
+            float(cfg.lm_lambda_init), kernels.stream_ptr(dev))
+        kernels.check(code, kernels.LM_SOLVE)
+        kernels.count_launch(kernels.LM_SOLVE)
+    for i in ((2, 8) if ladder is not None else (2,)):
+        outs[i] = outs[i].bool()
+    return tuple(outs)
+
+
 def lm_solve_kernel(cfg: NPSConfig, coeffs_pad: torch.Tensor,
                     x0: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                     u0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -75,58 +189,33 @@ def lm_solve_kernel(cfg: NPSConfig, coeffs_pad: torch.Tensor,
     if not u0.is_cuda:
         return lm_solve_plain(cfg, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
                               param_mask, active, max_iter, lam0, iter_budget)
-    N, M = u0.shape
-    P = (M - 1) // 2
-    dev, dt = u0.device, u0.dtype
-    K = y.shape[1]
-    lib = kernels.library()
-    # widths above the compiled ones must fit a block (asked once a card)
-    if (M != 1 + 2 * P or P < 1 or (P > LM_COMPILED_PULSES
-                                    and P > lm_max_pulses(K, dt, dev))):
-        raise ValueError(f"LM kernel takes 1..{lm_max_pulses(K, dt, dev)} "
-                         f"pulses over {K} fit bins in {dt} (a lane's arrays "
-                         f"in one block's shared memory), not {P} (M = {M})")
-    kernels.require(coeffs_pad, "coeffs_pad", (N, 4, SEG), dt, dev)
-    kernels.require(x0, "x0", (N,), dt, dev)
-    for name, t in (("u0", u0), ("lo", lo), ("hi", hi), ("p_seed", p_seed)):
-        kernels.require(t, name, (N, M), dt, dev)
-    for name, t in (("y", y), ("w", w)):
-        if tuple(t.shape) != (N, K) or t.dtype != dt or t.device != dev:
-            raise ValueError(f"{name} must be [{N}, {K}] {dt} on {dev}")
-    if tuple(param_mask.shape) != (N, M) or tuple(active.shape) != (N,):
-        raise ValueError("param_mask must be [N, M] and active [N]")
-    if iter_budget is None:
-        iter_budget = torch.full((N,), max_iter, dtype=torch.int32, device=dev)
-    budget = torch.clamp(iter_budget.to(device=dev, dtype=torch.int32),
-                         max=max_iter).contiguous()
-    lam0_t = (torch.zeros((N,), dtype=dt, device=dev) + lam0).contiguous()
-    # lanes-minor fit data ([K, N]); each lane's team stages
-    # its own bins into shared memory once
-    yt = y.t().contiguous()
-    wt = w.t().contiguous()
-    pmask = param_mask.to(torch.uint8).contiguous()
-    act = active.to(torch.uint8).contiguous()
-    u = torch.empty((N, M), dtype=dt, device=dev)
-    chi2 = torch.empty((N,), dtype=dt, device=dev)
-    conv = torch.empty((N,), dtype=torch.uint8, device=dev)
-    n_iter = torch.empty((N,), dtype=torch.int32, device=dev)
-    edm = torch.empty((N,), dtype=dt, device=dev)
-    lam = torch.empty((N,), dtype=dt, device=dev)
-    if N == 0:
-        return u, chi2, conv.bool(), n_iter, edm, lam
-    ins = (coeffs_pad, x0, yt, wt, u0, lo, hi, p_seed, pmask, act, budget,
-           lam0_t)
-    outs = (u, chi2, conv, n_iter, edm, lam)
-    in_ptrs = (ctypes.c_void_p * len(ins))(*(t.data_ptr() for t in ins))
-    out_ptrs = (ctypes.c_void_p * len(outs))(*(t.data_ptr() for t in outs))
-    eps = float(torch.finfo(dt).eps)
-    code = lib.npswf_lm_solve(
-        kernels.dtype_code(dt), P, in_ptrs, out_ptrs, N, K, cfg.fit_lo_bin,
-        int(max_iter), float(cfg.lm_lambda_up), float(cfg.lm_lambda_down),
-        float(cfg.lm_lambda_min), float(cfg.lm_lambda_max),
-        max(cfg.lm_ftol, 100.0 * eps), max(cfg.lm_gtol, 100.0 * eps), eps,
-        float(cfg.spline_gate_lo), float(cfg.ntime - 1), SAT_THRESH, CHOL_EPS,
-        kernels.stream_ptr(dev))
-    kernels.check(code, kernels.LM_SOLVE)
-    kernels.count_launch(kernels.LM_SOLVE)
-    return u, chi2, conv.bool(), n_iter, edm, lam
+    return _launch(cfg, coeffs_pad, x0, y, w, u0, lo, hi, p_seed, param_mask,
+                   active, max_iter, lam0, iter_budget)
+
+
+def lm_ladder_kernel(cfg: NPSConfig, coeffs_pad: torch.Tensor,
+                     x0: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
+                     u0: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                     p_seed: torch.Tensor, param_mask: torch.Tensor,
+                     active: torch.Tensor, s1_cap: int, s1_budget,
+                     s2_cap: int, s2_budget) -> Tuple[torch.Tensor, ...]:
+    """The fit's ladder in one K3 launch at P <= LM_COMPILED_PULSES: stage 1
+    from u0 (lm_lambda_init, s1_budget, at most s1_cap iterations), then on
+    each active lane stage 1 left unconverged the stage-2 restart from u0
+    (lm_lambda_init x 10) and, with ``lm_stage3``, each pull-back of
+    ``lm_stage3_pullbacks`` until one converges (lm_lambda_init), each rung
+    with s2_budget and at most s2_cap iterations (csrc/lm.cuh).
+
+    Arrays as ``lm_solve_kernel``'s. Returns (u1, chi2_1, conv1, it1, edm1,
+    u2, chi2_2, conv2, it2, rung_lanes): stage 1's end, the rungs' merged
+    end (zeros on lanes that entered none), and the lanes that entered each
+    rung ([ladder_rungs(cfg)] int32, on the device). Bit-equal to
+    ``lm_ladder_plain``."""
+    if not u0.is_cuda:
+        return lm_ladder_plain(cfg, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
+                               param_mask, active, s1_cap, s1_budget, s2_cap,
+                               s2_budget)
+    u1, chi2_1, conv1, it1, edm1, _, *rest = _launch(
+        cfg, coeffs_pad, x0, y, w, u0, lo, hi, p_seed, param_mask, active,
+        s1_cap, cfg.lm_lambda_init, s1_budget, ladder=(s2_cap, s2_budget))
+    return (u1, chi2_1, conv1, it1, edm1, *rest)

@@ -15,7 +15,9 @@ non-zero code. ``launches`` counts kernel launches by name and
 show which path it took. ``counts`` holds the layers' own counters, each a
 number the host already holds where it is counted: ``process_batch``
 calls, the host syncs of the program's own code by site (``sync.<site>``),
-the fit ladder's lanes and rungs, and the WF file merge's members, those
+the fit ladder's route, lanes and rungs (the rungs' lanes read back with
+the batch's diagnostics where K3 runs the ladder), and the WF file
+merge's members, those
 deflated on its pool and the pool's width (``io.merge.*``).
 ``count_launch``, ``count_plain`` and
 ``count`` add to them under a lock: the segment executor runs
@@ -99,7 +101,7 @@ _SIGNATURES = {
     "npswf_search": [_I] + [_P] * 7 + [_I] * 10 + [_D] * 5 + [_P],
     "npswf_search_layout": [_I] * 5,
     "npswf_lm_max_pulses": [_I, _I],
-    "npswf_lm_solve": [_I, _I, _P, _P] + [_I] * 4 + [_D] * 11 + [_P],
+    "npswf_lm_solve": [_I, _I, _P, _P] + [_I] * 6 + [_D] * 13 + [_P],
     "npswf_fused_eval": [_I] + [_P] * 9 + [_I] * 4 + [_D] * 2 + [_P],
     "npswf_fused_neq": [_I, _I, _P, _P, _I, _I] + [_L] * 3 + [_P],
     "npswf_system_layout": [_I] * 3,

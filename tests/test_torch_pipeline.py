@@ -168,3 +168,19 @@ def test_process_batch_single_device_only(small_cfg, small_cal, tmp_path):
                             reduce_axes=(rm.world,))
     for name, a, b in zip(ref._fields, out, ref):
         assert torch.equal(a, b), name
+
+@pytest.mark.parametrize("ntime", [110, 140, 64, 25])
+def test_block_diagnostics_match_jax(ntime):
+    """The diagnostics count their window's width on the host; at widths
+    that end past, inside and before the window they are the JAX
+    package's."""
+    from npswf_tpu.core.config import NPSConfig as JaxConfig
+    from npswf_tpu.engine.diagnostics import block_diagnostics as jax_diag
+    from npswf_tpu_torch.engine.diagnostics import block_diagnostics
+    sig = np.random.default_rng(ntime).normal(5.0, 3.0, (2, 7, ntime))
+    ours = block_diagnostics(TorchConfig(ntime=ntime), torch.as_tensor(sig))
+    ref = jax_diag(JaxConfig(ntime=ntime), jnp.asarray(sig))
+    assert set(ref) <= set(ours)   # and ener_raw, enertot's terms
+    for k in ref:
+        np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]),
+                                   rtol=1e-12, atol=1e-12, err_msg=k)
