@@ -102,6 +102,20 @@ def _slot(mask: torch.Tensor) -> torch.Tensor:
                        nm + torch.cumsum(1 - m, 0) - 1)
 
 
+def _compact(mask: torch.Tensor, cap: int):
+    """A stage's lanes under a capacity of ``cap``: (the lanes to hand it,
+    each lane's row in its answers, the lanes it served). The first ``cap``
+    masked lanes go in, in index order (``_front``), and each lane reads
+    its answer from its place in that order (``_slot``, clamped to the
+    answers' rows); a capacity that covers every lane serves them in
+    place."""
+    if cap >= mask.shape[0]:
+        return slice(None), slice(None), mask
+    lanes = _front(mask)[:cap]
+    pos = _slot(mask)
+    return lanes, torch.clamp(pos, max=cap - 1), mask & (pos < cap)
+
+
 def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
                   batch: EventBatch, block_axis: Optional[Axis] = None,
                   block_shards: int = 1, reduce_axes: Tuple[Axis, ...] = (),
@@ -173,18 +187,15 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
             kernels.count("engine.search_lanes", cap_s if compact else N)
             if compact:
                 # the compaction: the first cap_s present lanes gathered in,
-                # their answers gathered back to every lane by _slot
+                # their answers gathered back to every lane
                 with span("engine.search.compact"):
-                    sel_s = _front(flat_present)[:cap_s]
+                    sel_s, posc_s, searched = _compact(flat_present, cap_s)
                     lanes_s = (flat_sig[sel_s], minsignal[sel_s],
                                kern_flat[sel_s], mfint_flat[sel_s],
                                flat_present[sel_s])
                 ps_c = find_pulses(cfg, *lanes_s, plain=plain)
                 del lanes_s  # the gathered lanes are the search's alone
                 with span("engine.search.compact"):
-                    pos_s = _slot(flat_present)
-                    searched = flat_present & (pos_s < cap_s)
-                    posc_s = torch.clamp(pos_s, max=cap_s - 1)
                     npulse = torch.where(searched, ps_c.npulse[posc_s],
                                          0).to(torch.int32)
                     seed_t_abs = torch.where(searched[:, None],
@@ -248,9 +259,8 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
                 kernels.count("fit.stage1_lanes", min(n_mask, cap_b))
                 # capacity covers every lane: fit in place, the bucket mask as
                 # `active` (no compaction permutation); else the first cap_b lanes
-                in_place = cap_b >= N
-                kernels.count("fit.launched_lanes", N if in_place else cap_b)
-                lanes = slice(None) if in_place else _front(mask)[:cap_b]
+                kernels.count("fit.launched_lanes", min(cap_b, N))
+                lanes, posc, infit = _compact(mask, cap_b)
                 sel_sig = flat_sig[lanes]
                 sel_blocks = blocks_flat[lanes]
                 sel_err = error_model(cfg, sel_sig)
@@ -270,14 +280,6 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
                 pf = torch.cat([fres.params,
                                 torch.zeros((fres.params.shape[0], 2 * (P - Pb)),
                                             dtype=dtype, device=dev)], dim=1)
-                if in_place:
-                    infit = mask
-                    posc = slice(None)
-                else:
-                    # un-permute by gather: lane i sits at _slot(mask)[i]
-                    pos = _slot(mask)
-                    infit = mask & (pos < cap_b)
-                    posc = torch.clamp(pos, max=cap_b - 1)
                 params = torch.where(infit[:, None], pf[posc], params)
                 chi2_ndf = torch.where(infit, fres.chi2_ndf[posc], chi2_ndf)
                 converged = converged | (fres.converged[posc] & infit)

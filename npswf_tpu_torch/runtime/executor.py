@@ -69,6 +69,9 @@ from npswf_tpu_torch.io.decode import DecodedBatch, decode_segment
 from npswf_tpu_torch.io.merge import merge_parts
 from npswf_tpu_torch.io.rawstream import RawSegment
 from npswf_tpu_torch.io.writer import WFWriter
+from npswf_tpu_torch.parallel.mesh import (gather_output, launch,
+                                           make_sharded_pipeline,
+                                           shard_calibration, shard_event_batch)
 from npswf_tpu_torch.utils.timers import StageTimer, device_trace, span
 
 log = logging.getLogger("npswf")
@@ -285,6 +288,108 @@ def _on(stream):
     return contextlib.nullcontext() if stream is None else torch.cuda.stream(stream)
 
 
+class _SegmentJob:
+    """What both segment paths do alike: the plan, the decode, the part
+    writes and the ending.
+
+    The plan: the batch ranges a resume has not completed (``pending``),
+    the parts directory, which only the ``lead`` (the writer) creates, and
+    the progress sidecar, read here. ``decode`` gives a batch padded to the
+    batch size, ``write`` persists one batch as a part file and marks it,
+    ``finish`` merges the parts into the WF file. The run's wall time
+    starts here."""
+
+    def __init__(self, cfg: NPSConfig, cal: CalibrationBundle,
+                 seg: RawSegment, out_path: str, batch_size: int,
+                 resume: bool, use_native_decode: bool, timers: StageTimer,
+                 progress_every: int, lead: bool = True):
+        self.t_start = time.perf_counter()
+        self.cfg, self.cal, self.seg, self.out_path = cfg, cal, seg, out_path
+        self.batch_size, self.use_native = batch_size, use_native_decode
+        self.timers, self.progress_every = timers, progress_every
+        self.parts_dir = out_path + ".parts"
+        if lead:
+            os.makedirs(self.parts_dir, exist_ok=True)
+        self.progress = _Progress(out_path + ".progress.json")
+        ranges = [(lo, min(lo + batch_size, seg.n_events))
+                  for lo in range(0, seg.n_events, batch_size)]
+        self.pending = [r for r in ranges
+                        if not (resume and self.progress.done(*r))]
+        if lead and len(self.pending) < len(ranges):
+            log.info("resume: skipping %d completed batches",
+                     len(ranges) - len(self.pending))
+        self.done_events = 0
+        self.last_done = None
+
+    def decode(self, lo: int, hi: int) -> DecodedBatch:
+        with span("runtime.decode", self.timers):
+            return _pad_decoded(self.cfg, decode_segment(
+                self.cfg, self.cal, self.seg, lo, hi,
+                use_native=self.use_native), self.batch_size)
+
+    def write(self, lo: int, hi: int, d_pad: DecodedBatch, out) -> None:
+        """Batch [lo, hi) as a part file, marked in the sidecar; ``out`` is
+        a host WriterPacket or a PipelineOutput of host arrays."""
+        n_valid = hi - lo
+        _warn_bad_events(d_pad, n_valid)
+        # inter-batch completion gap: its median is the steady-state
+        # batch period
+        t_now = time.perf_counter()
+        if self.last_done is not None:
+            self.timers.record("interbatch", t_now - self.last_done)
+        self.last_done = t_now
+        with span("runtime.write", self.timers):
+            w = WFWriter(self.cfg)
+            if isinstance(out, PipelineOutput):
+                # in the packet's type (fp32), so that a part's values do
+                # not depend on the route that brought it
+                w.add_batch(PipelineOutput(*(
+                    np.asarray(a, np.float32) if a.dtype.kind == "f" else a
+                    for a in out)), d_pad, n_valid=n_valid)
+            else:
+                w.add_packet(out, d_pad, n_valid=n_valid)
+            w.finalize(os.path.join(self.parts_dir,
+                                    f"part_{lo:09d}_{hi:09d}.npz"),
+                       compress=False)
+        self.progress.mark(lo, hi)
+        self.done_events += n_valid
+        if self.done_events % self.progress_every < self.batch_size:
+            dt_el = time.perf_counter() - self.t_start
+            log.info(" Entry = %d  elapsed=%.2fs (%.0f ev/s)", hi, dt_el,
+                     self.done_events / max(dt_el, 1e-9))
+
+    def finish(self, compress_output: bool) -> RunResult:
+        """The ordered merge of the parts (the temp->final clone, ref
+        :1396-1432), the parts and the sidecar removed, the totals logged."""
+        with span("runtime.merge", self.timers):
+            part_paths = [os.path.join(self.parts_dir, f)
+                          for f in sorted(os.listdir(self.parts_dir))]
+            merged = merge_parts(part_paths, self.out_path,
+                                 payload=dict(self.seg.payload),
+                                 compress=compress_output)
+        shutil.rmtree(self.parts_dir, ignore_errors=True)
+        if os.path.exists(self.progress.path):
+            os.remove(self.progress.path)
+        n = self.seg.n_events
+        wall = time.perf_counter() - self.t_start
+        res = RunResult(**dict(dataclasses.asdict(merged), n_events=n),
+                        wall_time=wall, events_per_sec=n / max(wall, 1e-9),
+                        blocks_per_sec=n * self.cfg.nblocks / max(wall, 1e-9),
+                        out_path=self.out_path)
+        log.info("Total failed fits: %d total fits succeed: %d (dropped %d)",
+                 res.n_fit_failure, res.n_fit_success, res.n_fit_dropped)
+        guards = (res.n_bad_slot, res.n_oversize, res.n_truncated,
+                  res.n_high_pulse, res.n_search_dropped)
+        if any(guards):
+            log.warning(
+                "decode/search guards: %d bad-slot, %d oversize-skipped, "
+                "%d truncated events; %d high-pulse-count blocks; "
+                "%d search-capacity-dropped lanes", *guards)
+        log.info(self.timers.report())
+        log.info(kernels.counts_report())
+        return res
+
+
 def run_segment(cfg: NPSConfig, cal: CalibrationBundle, seg: RawSegment,
                 out_path: str, batch_size: int = 64,
                 mesh=None, resume: bool = True,
@@ -307,72 +412,49 @@ def run_segment(cfg: NPSConfig, cal: CalibrationBundle, seg: RawSegment,
     stays per batch. ``mesh`` (a ``parallel.mesh.Mesh``) runs the batches
     over its ranks instead of on ``device``: see ``_run_segment_mesh``.
     """
+    timers = timers or StageTimer()
     if mesh is not None:
         return _run_segment_mesh(cfg, cal, seg, out_path, batch_size, mesh,
                                  resume, use_native_decode, timers,
                                  progress_every, profile_dir, compress_output)
     with span("runtime.run_segment"):
         dev = resolve_device(device)
-        timers = timers or StageTimer()
-        t_start = time.perf_counter()
+        job = _SegmentJob(cfg, cal, seg, out_path, batch_size, resume,
+                          use_native_decode, timers, progress_every)
         dtype = torch_dtype(cfg)
         calib = calib_to_torch(cal.device_arrays(cfg), dev, dtype)
         if dev.type == "cuda":
             # the workers' streams read the calibration
             torch.cuda.current_stream(dev).synchronize()
 
-        E, B = batch_size, cfg.nblocks
-        E_total = seg.n_events
-        parts_dir = out_path + ".parts"
-        os.makedirs(parts_dir, exist_ok=True)
-        progress = _Progress(out_path + ".progress.json")
-
-        ranges = [(lo, min(lo + batch_size, E_total))
-                  for lo in range(0, E_total, batch_size)]
-        pending = [r for r in ranges if not (resume and progress.done(*r))]
-        if len(pending) < len(ranges):
-            log.info("resume: skipping %d completed batches",
-                     len(ranges) - len(pending))
-
         # ---- packet sizing from the first batch's occupancy ----------------
-        first = None
+        E, B = batch_size, cfg.nblocks
+        first = {}      # the first batch, decoded here, for its stage worker
         pack_cap, lane_cap = 2 * E * B, 0
-        if pending:
-            lo0, hi0 = pending[0]
-            with span("runtime.decode", timers):
-                d0 = decode_segment(cfg, cal, seg, lo0, hi0,
-                                    use_native=use_native_decode)
-                d0_pad = _pad_decoded(cfg, d0, batch_size)
+        if job.pending:
+            first[job.pending[0]] = d0 = job.decode(*job.pending[0])
             pack_cap, lane_cap = packet_caps(
-                E, B, int(d0_pad.pres[:, :B].astype(bool).sum()))
-            first = (d0, d0_pad)
+                E, B, int(d0.pres[:, :B].astype(bool).sum()))
         k_chain = max(int(chain_batches), 1)
         packed_chain = make_pipeline_packed_chain(cfg, calib, pack_cap, lane_cap)
         streams = _Streams(dev)
 
-        done_events = 0
         trace_ctx = device_trace(profile_dir)
         trace_ctx.__enter__()
 
-        def produce(group, pre_decoded=None):
+        def produce(group):
             """Decode -> upload -> run -> start the packet's copy back, for a
             chain of batch ranges (on a stage worker thread, on its stream)."""
             stream = streams.get()
             items = []
             with _on(stream):
-                for j, (lo, hi) in enumerate(group):
-                    if j == 0 and pre_decoded is not None:
-                        d, d_pad = pre_decoded
-                    else:
-                        with span("runtime.decode", timers):
-                            d = decode_segment(cfg, cal, seg, lo, hi,
-                                               use_native=use_native_decode)
-                            d_pad = _pad_decoded(cfg, d, batch_size)
+                for lo, hi in group:
+                    d_pad = first.pop((lo, hi), None) or job.decode(lo, hi)
                     with span("runtime.upload", timers):
                         dev_batch = _upload_batch(cfg, d_pad, dtype, dev)
-                    items.append((lo, hi, d, d_pad, dev_batch))
+                    items.append((lo, hi, d_pad, dev_batch))
                 with span("runtime.pipeline", timers):
-                    flat = packed_chain([it[4] for it in items])
+                    flat = packed_chain([it[3] for it in items])
                     if stream is None:
                         return items, flat, None, None
                     # one copy back into pinned memory, in stream order
@@ -383,49 +465,20 @@ def run_segment(cfg: NPSConfig, cal: CalibrationBundle, seg: RawSegment,
                     done.record(stream)
             return items, host, done, stream
 
-        last_done = [None]
-
-        def write_part(lo, hi, n_valid, d_pad, pkt_host, out):
-            nonlocal done_events
-            # inter-batch completion gap: its median is the steady-state
-            # batch period
-            t_now = time.perf_counter()
-            if last_done[0] is not None:
-                timers.record("interbatch", t_now - last_done[0])
-            last_done[0] = t_now
-            with span("runtime.write", timers):
-                w = WFWriter(cfg)
-                if pkt_host is None:
-                    w.add_batch(out, d_pad, n_valid=n_valid)
-                else:
-                    w.add_packet(pkt_host, d_pad, n_valid=n_valid)
-                w.finalize(os.path.join(parts_dir, f"part_{lo:09d}_{hi:09d}.npz"),
-                           compress=False)
-            progress.mark(lo, hi)
-            done_events += n_valid
-            if done_events % progress_every < batch_size:
-                dt_el = time.perf_counter() - t_start
-                log.info(" Entry = %d  elapsed=%.2fs (%.0f ev/s)",
-                         lo + n_valid, dt_el, done_events / max(dt_el, 1e-9))
-
         # three-deep pipeline: 2 stage workers (decode, upload, run), the main
         # thread fetches results in order, 1 writer thread persists parts.
-        groups = [pending[i:i + k_chain]
-                  for i in range(0, len(pending), k_chain)]
+        groups = iter([job.pending[i:i + k_chain]
+                       for i in range(0, len(job.pending), k_chain)])
         stage_pool = ThreadPoolExecutor(max_workers=2)
         write_pool = ThreadPoolExecutor(max_workers=1)
         max_inflight = 3
         futs = deque()
         wfuts = deque()
-        idx_next = 0
 
         def submit_next():
-            nonlocal idx_next, first
-            if idx_next < len(groups):
-                pre = first if idx_next == 0 else None
-                first = None
-                futs.append(stage_pool.submit(produce, groups[idx_next], pre))
-                idx_next += 1
+            group = next(groups, None)
+            if group is not None:
+                futs.append(stage_pool.submit(produce, group))
 
         try:
             for _ in range(max_inflight):
@@ -438,21 +491,18 @@ def run_segment(cfg: NPSConfig, cal: CalibrationBundle, seg: RawSegment,
                     if done is not None:
                         done.synchronize()
                     rows = list(flat.numpy())                   # [k, total]
-                for (lo, hi, d, d_pad, dev_batch), buf in zip(items, rows):
-                    n_valid = hi - lo
-                    _warn_bad_events(d, n_valid)
+                for (lo, hi, d_pad, dev_batch), buf in zip(items, rows):
                     with span("runtime.unpack"):
-                        pkt_host, lane_ovf = unflatten_packet(
+                        pkt, lane_ovf = unflatten_packet(
                             buf, batch_size, cfg.nblocks, pack_cap,
                             pres=d_pad.pres[:, :B], lane_cap=lane_cap,
                             P=cfg.maxwfpulses)
-                        out = None
                         # slab packets (lane_cap > 0) have no element
                         # capacity — only lane overflow forces the dense
                         # fallback
                         if lane_ovf or (lane_cap == 0
-                                        and (int(pkt_host.n_wf) > pack_cap
-                                             or int(pkt_host.n_h) > pack_cap)):
+                                        and (int(pkt.n_wf) > pack_cap
+                                             or int(pkt.n_h) > pack_cap)):
                             # occupancy burst beyond the batch-0 sizing: run
                             # this batch again through the dense pipeline, on
                             # the stream that holds its tensors, and hand the
@@ -460,14 +510,13 @@ def run_segment(cfg: NPSConfig, cal: CalibrationBundle, seg: RawSegment,
                             log.warning(
                                 "batch %d-%d: writer-packet overflow (%d/%d "
                                 "wf, %d/%d h, lane_ovf=%s); re-running batch "
-                                "dense", lo, hi, int(pkt_host.n_wf), pack_cap,
-                                int(pkt_host.n_h), pack_cap, lane_ovf)
-                            pkt_host = None
+                                "dense", lo, hi, int(pkt.n_wf), pack_cap,
+                                int(pkt.n_h), pack_cap, lane_ovf)
                             with _on(stream):
-                                out = output_to_host(
+                                pkt = output_to_host(
                                     process_batch(cfg, calib, dev_batch))
-                    wfuts.append(write_pool.submit(
-                        write_part, lo, hi, n_valid, d_pad, pkt_host, out))
+                    wfuts.append(write_pool.submit(job.write, lo, hi,
+                                                   d_pad, pkt))
                 with span("runtime.write_wait", timers):
                     while len(wfuts) > 2:
                         wfuts.popleft().result()
@@ -481,44 +530,7 @@ def run_segment(cfg: NPSConfig, cal: CalibrationBundle, seg: RawSegment,
             stage_pool.shutdown(wait=True)
             write_pool.shutdown(wait=True)
 
-        # ---- ordered merge of parts (the temp->final clone, ref :1396-1432) ----
-        with span("runtime.merge", timers):
-            part_paths = [os.path.join(parts_dir, f)
-                          for f in sorted(os.listdir(parts_dir))]
-            merged = merge_parts(part_paths, out_path, payload=dict(seg.payload),
-                                 compress=compress_output)
-        shutil.rmtree(parts_dir, ignore_errors=True)
-        if os.path.exists(out_path + ".progress.json"):
-            os.remove(out_path + ".progress.json")
-
-        wall = time.perf_counter() - t_start
-        res = RunResult(
-            n_events=E_total,
-            n_fit_success=merged.n_fit_success,
-            n_fit_failure=merged.n_fit_failure,
-            n_fit_dropped=merged.n_fit_dropped,
-            wall_time=wall,
-            events_per_sec=E_total / max(wall, 1e-9),
-            blocks_per_sec=E_total * cfg.nblocks / max(wall, 1e-9),
-            out_path=out_path,
-            n_bad_slot=merged.n_bad_slot,
-            n_oversize=merged.n_oversize,
-            n_truncated=merged.n_truncated,
-            n_high_pulse=merged.n_high_pulse,
-            n_search_dropped=merged.n_search_dropped)
-        log.info("Total failed fits: %d total fits succeed: %d (dropped %d)",
-                 res.n_fit_failure, res.n_fit_success, res.n_fit_dropped)
-        if (res.n_bad_slot or res.n_oversize or res.n_truncated
-                or res.n_high_pulse or res.n_search_dropped):
-            log.warning(
-                "decode/search guards: %d bad-slot, %d oversize-skipped, "
-                "%d truncated events; %d high-pulse-count blocks; "
-                "%d search-capacity-dropped lanes",
-                res.n_bad_slot, res.n_oversize, res.n_truncated,
-                res.n_high_pulse, res.n_search_dropped)
-        log.info(timers.report())
-        log.info(kernels.counts_report())
-        return res
+        return job.finish(compress_output)
 
 
 # ---------------------------------------------------------------------
@@ -528,12 +540,11 @@ def _run_segment_mesh(cfg, cal, seg, out_path, batch_size, mesh, resume,
                       use_native_decode, timers, progress_every, profile_dir,
                       compress_output) -> RunResult:
     """``run_segment`` over the ranks of ``mesh``, as the JAX package's mesh
-    path: one batch at a time (chaining does not apply), the dense packet.
-    Every rank decodes the batch and takes its shard; the global output is
-    gathered on rank 0, which builds the packet on its device, writes the
-    part, records it for resume and merges the parts at the end. The
-    caller's ``timers`` get rank 0's stage samples."""
-    from npswf_tpu_torch.parallel.mesh import launch
+    path: one batch at a time (chaining does not apply). Every rank decodes
+    the batch and takes its shard; the global output is gathered on rank 0,
+    which writes its host arrays as the part, records it for resume and
+    merges the parts at the end. The caller's ``timers`` get rank 0's
+    stage samples."""
     # the raw stream (about 1 MB a dense event) reaches the ranks as one
     # file that each maps, not as a pickled copy a rank
     stream_path = out_path + ".stream.npy"
@@ -546,12 +557,9 @@ def _run_segment_mesh(cfg, cal, seg, out_path, batch_size, mesh, resume,
                               compress_output)
     finally:
         os.remove(stream_path)
-    if timers is not None:
-        for name, values in samples.items():
-            for dt in values:
-                timers.record(name, dt)
-    log.info("Total failed fits: %d total fits succeed: %d (dropped %d)",
-             res.n_fit_failure, res.n_fit_success, res.n_fit_dropped)
+    for name, values in samples.items():
+        for dt in values:
+            timers.record(name, dt)
     return res
 
 
@@ -561,42 +569,20 @@ def _mesh_rank(rm, cfg, cal, seg, stream_path, out_path, batch_size, resume,
     """One rank's part of ``_run_segment_mesh`` (``seg`` without its
     stream, which is mapped from ``stream_path``); rank 0 returns
     (RunResult, its stage samples), the others None."""
-    from npswf_tpu_torch.engine.pipeline import flatten_packet, pack_for_writer
-    from npswf_tpu_torch.parallel.mesh import (gather_output,
-                                               make_sharded_pipeline,
-                                               shard_calibration,
-                                               shard_event_batch)
     timers = StageTimer()
-    t_start = time.perf_counter()
-    seg = dataclasses.replace(seg, stream=np.load(stream_path, mmap_mode="r"))
     lead = rm.rank == 0
+    seg = dataclasses.replace(seg, stream=np.load(stream_path, mmap_mode="r"))
+    # every rank reads the sidecar before the first batch's collectives,
+    # so before rank 0 can mark anything
+    job = _SegmentJob(cfg, cal, seg, out_path, batch_size, resume,
+                      use_native_decode, timers, progress_every, lead)
     dtype = torch_dtype(cfg)
     calib = shard_calibration(
         cfg, calib_to_torch(cal.device_arrays(cfg), "cpu", dtype), rm)
     pipeline = make_sharded_pipeline(cfg, calib, rm)
-    E, B = batch_size, cfg.nblocks
-    pack_cap = 2 * E * B
-    parts_dir = out_path + ".parts"
-    if lead:
-        os.makedirs(parts_dir, exist_ok=True)
-    # every rank reads the sidecar before the first batch's collectives,
-    # so before rank 0 can mark anything
-    progress = _Progress(out_path + ".progress.json")
-    ranges = [(lo, min(lo + batch_size, seg.n_events))
-              for lo in range(0, seg.n_events, batch_size)]
-    pending = [r for r in ranges if not (resume and progress.done(*r))]
-    if lead and len(pending) < len(ranges):
-        log.info("resume: skipping %d completed batches",
-                 len(ranges) - len(pending))
-    done_events = 0
-    last_done = None
     with device_trace(profile_dir if lead else None):
-        for lo, hi in pending:
-            n_valid = hi - lo
-            with span("runtime.decode", timers):
-                d = decode_segment(cfg, cal, seg, lo, hi,
-                                   use_native=use_native_decode)
-                d_pad = _pad_decoded(cfg, d, batch_size)
+        for lo, hi in job.pending:
+            d_pad = job.decode(lo, hi)
             with span("runtime.upload", timers):
                 local = shard_event_batch(
                     cfg, _to_event_batch(cfg, d_pad, dtype, "cpu"), rm)
@@ -604,51 +590,8 @@ def _mesh_rank(rm, cfg, cal, seg, stream_path, out_path, batch_size, resume,
                 out = pipeline(local)
             with span("runtime.fetch", timers):
                 glob = gather_output(out, rm)
-            if not lead:
-                continue
-            _warn_bad_events(d, n_valid)
-            with span("runtime.write", timers):
-                out_t = PipelineOutput(*(torch.as_tensor(a, device=rm.device)
-                                         for a in glob))
-                buf = flatten_packet(pack_for_writer(out_t, pack_cap))
-                pkt, _ = unflatten_packet(buf.cpu().numpy(), E, B, pack_cap)
-                w = WFWriter(cfg)
-                if int(pkt.n_wf) > pack_cap or int(pkt.n_h) > pack_cap:
-                    w.add_batch(glob, d_pad, n_valid=n_valid)
-                else:
-                    w.add_packet(pkt, d_pad, n_valid=n_valid)
-                w.finalize(os.path.join(parts_dir,
-                                        f"part_{lo:09d}_{hi:09d}.npz"),
-                           compress=False)
-            progress.mark(lo, hi)
-            t_now = time.perf_counter()
-            if last_done is not None:
-                timers.record("interbatch", t_now - last_done)
-            last_done = t_now
-            done_events += n_valid
-            if done_events % progress_every < batch_size:
-                log.info(" Entry = %d  elapsed=%.2fs", hi,
-                         time.perf_counter() - t_start)
+            if lead:
+                job.write(lo, hi, d_pad, glob)
     if not lead:
         return None
-    with span("runtime.merge", timers):
-        part_paths = [os.path.join(parts_dir, f)
-                      for f in sorted(os.listdir(parts_dir))]
-        merged = merge_parts(part_paths, out_path, payload=dict(seg.payload),
-                             compress=compress_output)
-    shutil.rmtree(parts_dir, ignore_errors=True)
-    if os.path.exists(out_path + ".progress.json"):
-        os.remove(out_path + ".progress.json")
-    wall = time.perf_counter() - t_start
-    res = RunResult(
-        n_events=seg.n_events, n_fit_success=merged.n_fit_success,
-        n_fit_failure=merged.n_fit_failure, n_fit_dropped=merged.n_fit_dropped,
-        wall_time=wall, events_per_sec=seg.n_events / max(wall, 1e-9),
-        blocks_per_sec=seg.n_events * cfg.nblocks / max(wall, 1e-9),
-        out_path=out_path, n_bad_slot=merged.n_bad_slot,
-        n_oversize=merged.n_oversize, n_truncated=merged.n_truncated,
-        n_high_pulse=merged.n_high_pulse,
-        n_search_dropped=merged.n_search_dropped)
-    log.info(timers.report())
-    log.info(kernels.counts_report())
-    return res, dict(timers.samples)
+    return job.finish(compress_output), dict(timers.samples)

@@ -133,6 +133,9 @@ PORTED = {
                                   "shard_map",
     "executor._mesh_rank": "one rank of the mesh path: decode, shard, "
                            "gather on rank 0, which writes",
+    "executor._SegmentJob": "the port's own, no JAX original: the plan, "
+                            "decode, part writes and ending that run_segment "
+                            "and the mesh's ranks share",
     "cli._device": "the CUDA device unless --cpu",
     "cli.cmd_run": "the device check, --config, the mesh from "
                    "parallel.mesh (gloo ranks with --cpu)",

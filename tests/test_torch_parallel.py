@@ -37,7 +37,9 @@ from npswf_tpu_torch.parallel.dryrun import (dryrun, dryrun_batch,
                                              mesh_shapes, unequal_fields)
 from npswf_tpu_torch.parallel.mesh import (make_mesh, sharded_cluster_sums,
                                            sharded_process_batch)
+import npswf_tpu_torch.runtime.executor as executor
 from npswf_tpu_torch.runtime.executor import run_segment
+from npswf_tpu_torch.utils.timers import StageTimer
 import tests.torch_threads  # noqa: F401 (one torch thread a process)
 
 E = 8
@@ -190,19 +192,28 @@ def test_cluster_sums_across_four_block_shards(cfg, tmp_path):
 
 
 @pytest.fixture(scope="module")
-def segment_files(f64, cal, tmp_path_factory):
-    """A segment through run_segment on one device and under a (2, 2) CPU
-    mesh (batches of 4): 4 events and the same 4 again, so that the mesh's
-    launch runs the same inputs twice. Returns the two WF files' paths."""
+def segment(f64, cal, tmp_path_factory):
+    """(the port's config, its calibration, a raw segment): 4 events and
+    the same 4 again, two batches of 4."""
     from npswf_tpu_torch.tools.cli import synth_records
     from npswf_tpu_torch.utils.synthetic import make_events as port_events
-    tmp = tmp_path_factory.mktemp("segment")
+    tmp = tmp_path_factory.mktemp("calibration")
     cfg = _port(f64)
     pcal = CalibrationBundle.load(_save(cal, tmp))
     truth = port_events(cfg, pcal, 4, occupancy=0.05, max_pulses=2, seed=5)
     streams, hits = synth_records(cfg, truth, np.random.default_rng(6))
-    seg = build_segment(cfg, streams * 2, hits * 2, evt=np.arange(8.0),
-                        runnum=np.full(8, 3000.0))
+    return cfg, pcal, build_segment(cfg, streams * 2, hits * 2,
+                                    evt=np.arange(8.0),
+                                    runnum=np.full(8, 3000.0))
+
+
+@pytest.fixture(scope="module")
+def segment_files(f64, segment, tmp_path_factory):
+    """The segment through run_segment on one device and under a (2, 2)
+    CPU mesh (batches of 4), so that the mesh's launch runs the same
+    inputs twice. Returns the two WF files' paths."""
+    cfg, pcal, seg = segment
+    tmp = tmp_path_factory.mktemp("segment")
     one, two = str(tmp / "one.npz"), str(tmp / "mesh.npz")
     with _time_limit():
         r1 = run_segment(cfg, pcal, seg, one, batch_size=4, device="cpu")
@@ -230,12 +241,46 @@ def test_same_inputs_same_mesh_bitwise_identical(segment_files):
 
 def test_run_segment_on_a_mesh_writes_the_single_device_file(segment_files):
     """run_segment under a (2, 2) CPU mesh writes the same WF file, byte
-    for byte, as on one device (dense packet, batch-granular parts merged
-    by rank 0)."""
+    for byte, as on one device (rank 0 writes the gathered host arrays as
+    batch-granular parts and merges them)."""
     one, two = segment_files
     with open(one, "rb") as a, open(two, "rb") as b:
         assert a.read() == b.read()
     assert not os.path.exists(two + ".parts")
+
+
+def test_a_mesh_resumes_a_single_device_run(f64, segment, segment_files,
+                                            tmp_path, monkeypatch):
+    """A run on one device that crashes in its second decode leaves its
+    first part and the sidecar; run_segment under a (2, 1) CPU mesh on the
+    same path decodes only the missing batch (rank 0's samples reach the
+    caller's timers) and writes the single-device file, byte for byte."""
+    cfg, pcal, seg = segment
+    out = str(tmp_path / "wf.npz")
+    orig = executor.decode_segment
+    calls = []
+
+    def flaky(*a, **k):
+        calls.append(a[3])
+        if len(calls) == 2:
+            raise RuntimeError("injected crash")
+        return orig(*a, **k)
+
+    monkeypatch.setattr(executor, "decode_segment", flaky)
+    with pytest.raises(RuntimeError, match="injected"):
+        run_segment(cfg, pcal, seg, out, batch_size=4, device="cpu")
+    monkeypatch.undo()
+    assert os.listdir(out + ".parts") == ["part_000000000_000000004.npz"]
+    assert os.path.exists(out + ".progress.json")
+    timers = StageTimer()
+    run_segment(cfg, pcal, seg, out, batch_size=4,
+                mesh=_cpu_mesh(f64, 2, 1), timers=timers)
+    assert len(timers.samples["decode"]) == 1
+    assert len(timers.samples["write"]) == 1
+    with open(segment_files[0], "rb") as a, open(out, "rb") as b:
+        assert a.read() == b.read()
+    assert not os.path.exists(out + ".parts")
+    assert not os.path.exists(out + ".progress.json")
 
 
 def test_dryrun_on_two_cpu_ranks():

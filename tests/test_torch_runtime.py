@@ -286,6 +286,18 @@ def test_dense_fallback_gives_the_same_file(segments, tmp_path, monkeypatch,
     _same_file(wf, _plain(segments, "sparse", tmp_path))
 
 
+def test_dense_fallback_at_fp64_writes_the_packet_values(segments, tmp_path,
+                                                         monkeypatch):
+    """At fp64 too the dense path's batches write the packet's fp32
+    values: the file equals the packet run's."""
+    packet = _port_run(segments, "sparse", tmp_path / "packet.npz",
+                       dtype="float64")[1]
+    monkeypatch.setattr(executor, "packet_caps", lambda *a: (2, 2))
+    _, wf = _port_run(segments, "sparse", tmp_path / "wf.npz",
+                      dtype="float64")
+    _same_file(wf, packet)
+
+
 def test_empty_and_single_event_segments(small_cfg, tmp_path):
     cfg = NPSConfig.from_json(small_cfg.to_json())
     cal = synthetic_calibration(cfg, seed=2)
