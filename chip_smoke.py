@@ -12,7 +12,13 @@ full 1080-block calorimeter along four routes: the default path (K1, K2,
 K3), the generic LM loop with the in-kernel top-P search (K1, K4, K5) and
 its two system variants (K5 + K7, and K6). Each route's launch counts are
 read from its own run, its result is checked, and it is timed against the
-plain path. The ``[buckets]`` phase runs a pileup-heavy batch under bucket
+plain path. ``[graph]`` holds ``process_batch`` on the graph route (two
+CUDA graph replays around one read of the bucket sizes) to its eager body
+on dense, pileup, fp64 and sparse-readout batches (search_capacity 8,640)
+and capped buckets (fit_capacity 8,640), three of each in turns and after
+a calibration swap: every field bit-equal, each replay's launches and
+counters the eager call's, its kernels under torch.profiler the eager
+call's, K2 and K3 among them. The ``[buckets]`` phase runs a pileup-heavy batch under bucket
 bounds that route lanes to fit widths 1, 2, 4, 5, 10 and 12, on the
 default route (K3) and on ``use_fused_system`` (K6, every LM budget cut
 to 4 iterations), each bucket's decisions against the plain path. Then the ``[segment]`` phase drives the production entry
@@ -47,7 +53,8 @@ world of one rank on NCCL and over gloo ranks sharing the card (2x1, 1x2,
 then the dense segment through ``run_segment`` on a 2x2 mesh, its WF file
 against the single-device one; ``[probes]`` runs measure-link, perf-probe
 floor, e2e-bench and glue-profile through the CLI. It prints one JSON line
-of kernel records (times, launches, bounds), one each of the segment runs,
+of kernel records (times, launches, bounds), one of the graph route, one
+each of the segment runs,
 the buckets, the model families, K3's wide widths, the wide search
 settings, the tools, the mesh and
 the probes, the card's name and power limit, and a last JSON line
@@ -63,6 +70,7 @@ checkouts on one card in turns.
 """
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import multiprocessing
@@ -670,7 +678,7 @@ def time_lm_launches(torch, cfg, calib, batch, records, card):
     """K3 per launch on the default route: the ladder launches of one
     process_batch (one a fitted bucket) are captured with their arguments,
     then each is timed alone."""
-    from npswf_tpu_torch.engine.pipeline import process_batch
+    from npswf_tpu_torch.engine.pipeline import process_batch_eager
     from npswf_tpu_torch.fit import lm_kernel
     kernel = lm_kernel.lm_ladder_kernel
     calls = []
@@ -680,7 +688,8 @@ def time_lm_launches(torch, cfg, calib, batch, records, card):
         return kernel(cfg_, *args)
     lm_kernel.lm_ladder_kernel = capture
     try:
-        process_batch(cfg, calib, batch)
+        # the eager body: a graph's replay calls no Python
+        process_batch_eager(cfg, calib, batch)
         torch.cuda.synchronize()
     finally:
         lm_kernel.lm_ladder_kernel = kernel
@@ -707,6 +716,184 @@ def time_lm_launches(torch, cfg, calib, batch, records, card):
     records["lm_solve"]["route_launches"] = per
     say("K3", f"default route: {sum(r['ms'] for r in per):.4f} ms over "
               f"{len(per)} launches ({card})")
+
+
+# ---------------------------------------------------------------------
+# [graph]: process_batch as CUDA graph replays against the eager body
+# ---------------------------------------------------------------------
+# (tag, NPSConfig fields, make_events keywords, dtype); GRAPH_POOL batches
+# each, seeds 21, 22, ...
+GRAPH_KINDS = (
+    ("dense", {}, dict(occupancy=1.0, max_pulses=2, pileup_prob=0.25),
+     "float32"),
+    ("pileup", {}, dict(occupancy=1.0, max_pulses=4, pileup_prob=0.9),
+     "float32"),
+    ("fp64", {}, dict(occupancy=1.0, max_pulses=2, pileup_prob=0.25),
+     "float64"),
+    ("sparse", dict(search_capacity=8640),
+     dict(occupancy=0.05, max_pulses=2, pileup_prob=0.3), "float32"),
+    # capped buckets: _front's lanes, n_fit_dropped on the device
+    ("capped", dict(fit_capacity=8640),
+     dict(occupancy=1.0, max_pulses=4, pileup_prob=0.9), "float32"),
+)
+GRAPH_POOL = 3
+
+
+def same_output(torch, a, b):
+    """The fields of two PipelineOutputs that differ (dtype, shape or a
+    value; NaN equal to NaN)."""
+    differ = []
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype != y.dtype or x.shape != y.shape or not bool(
+                ((x == y) | (x.isnan() & y.isnan())
+                 if x.is_floating_point() else (x == y)).all()):
+            differ.append(f)
+    return differ
+
+
+def graph_pool(torch, dev, kind, seed0=21):
+    """[graph]'s batches of one kind: (cfg, calibration tensors, batches)."""
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.config import NPSConfig
+    from npswf_tpu_torch.core.params import batch_to_torch, calib_to_torch
+    from npswf_tpu_torch.utils.synthetic import make_events
+    tag, fields, events, dt_name = kind
+    dt = getattr(torch, dt_name)
+    cfg = NPSConfig(compute_dtype=dt_name, **fields)
+    cal = synthetic_calibration(cfg.replace(compute_dtype="float32"), seed=1)
+    batches = []
+    for i in range(GRAPH_POOL):
+        truth = make_events(cfg, cal, E_BENCH, seed=seed0 + i, **events)
+        corr = np.random.default_rng(seed0 + i).uniform(-2, 2, E_BENCH)
+        pres = (truth.npulse > 0) if tag == "sparse" else truth.pres
+        batches.append(batch_to_torch(truth.signal.astype(np.float32), pres,
+                                      corr.astype(np.float32), dev, dt))
+    return cfg, cal, calib_to_torch(cal.device_arrays(cfg), dev, dt), batches
+
+
+def counted(torch, fn):
+    """fn()'s answer, its launches, the program's counters but the call's
+    own and the graphs', and every counter."""
+    from npswf_tpu_torch import kernels
+    kernels.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in kernels.counts.items()
+              if k != "engine.process_batch"
+              and not k.startswith("engine.graph_")}
+    return out, dict(kernels.launches), counts, dict(kernels.counts)
+
+
+def call_kernels(torch, fn):
+    """The device kernels of a call of ``fn``, sorted by name: the second
+    of two calls under torch.profiler, taken as the kernels that start
+    after a marker kernel (``torch.cuda._sleep``) launched just before it
+    ends, both on the device's clock (the host's clock is offset from it),
+    with no copy, fill of memory or span of the program."""
+    cuda = torch.autograd.DeviceType.CUDA
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100000)
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == cuda]
+    marks = [e.time_range.end for e in device if "spin_kernel" in e.name]
+    check(marks, "[graph] the profiler shows no marker kernel")
+    t0 = max(marks)
+    return sorted(e.name for e in device
+                  if e.time_range.start >= t0 and not e.name.startswith(
+                      ("npswf.", "chip_smoke."))
+                  and not any(c in e.name for c in ("Memcpy", "Memset",
+                                                    "memcpy", "memset")))
+
+
+def check_graph(torch, dev, card):
+    """The [graph] phase: process_batch on the graph route (two CUDA graph
+    replays around one read of the bucket sizes) against its eager body on
+    a dense, a pileup, an fp64 and a sparse-readout batch under
+    search_capacity 8,640, and a pileup batch under fit_capacity 8,640
+    (capped buckets), GRAPH_POOL batches of each in turns (the input
+    pointers differ), twice round, then after a calibration swap and back:
+    every field bit-equal, every replay's launches and counters equal to
+    the eager call's; under torch.profiler one replay's device kernels
+    equal the eager call's, K2 and K3 among them; host ms a call, eager
+    and replayed."""
+    from npswf_tpu_torch.core.calibration import synthetic_calibration
+    from npswf_tpu_torch.core.params import calib_to_torch
+    from npswf_tpu_torch.engine import graphs, pipeline
+    summary = {}
+    for kind in GRAPH_KINDS:
+        tag = kind[0]
+        cfg, cal, calib, batches = graph_pool(torch, dev, kind)
+        check(pipeline.graph_route(cfg, dev), f"[graph] {tag}: not routed "
+                                               "to the graphs")
+        graphs.clear()
+        # what runs once a process (the search's taps) before the counts
+        pipeline.process_batch_eager(cfg, calib, batches[0])
+        cal2 = synthetic_calibration(cfg.replace(compute_dtype="float32"),
+                                     seed=2)
+        calib2 = calib_to_torch(cal2.device_arrays(cfg), dev,
+                                batches[0].signal.dtype)
+        order = [(i, calib) for i in range(GRAPH_POOL)] * 2 + [
+            (0, calib2), (1, calib2), (0, calib)]
+        replays = 0
+        for n, (i, cb) in enumerate(order):
+            b = batches[i]
+            ref, launches_e, counts_e, _ = counted(
+                torch, lambda: pipeline.process_batch_eager(cfg, cb, b))
+            out, launches_g, counts_g, every = counted(
+                torch, lambda: pipeline.process_batch(cfg, cb, b))
+            differ = same_output(torch, out, ref)
+            check(not differ, f"[graph] {tag} call {n} (batch {i}): fields "
+                              f"differ from the eager body: {differ}")
+            replayed = every.get("engine.graph_replays", 0)
+            check(replayed == (0 if n == 0 else 1),
+                  f"[graph] {tag} call {n}: {replayed} replays")
+            replays += replayed
+            check(launches_g == launches_e and counts_g == counts_e,
+                  f"[graph] {tag} call {n}: counted {launches_g} {counts_g}, "
+                  f"the eager body {launches_e} {counts_e}")
+        b = batches[1]
+        ke = call_kernels(
+            torch, lambda: pipeline.process_batch_eager(cfg, calib, b))
+        kg = call_kernels(torch, lambda: pipeline.process_batch(cfg, calib, b))
+        only_e = collections.Counter(ke) - collections.Counter(kg)
+        only_g = collections.Counter(kg) - collections.Counter(ke)
+        check(ke == kg, f"[graph] {tag}: the profiler shows {len(kg)} "
+                        f"kernels a replay, {len(ke)} an eager call; only "
+                        f"eager: {dict(only_e)}; only replayed: "
+                        f"{dict(only_g)}")
+        check(any("lm_kernel<" in n for n in kg)
+              and any("search_kernel<" in n for n in kg),
+              f"[graph] {tag}: K2 or K3 missing from a replay's kernels")
+
+        def ms(fn):
+            fn()
+            torch.cuda.synchronize()
+            t = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                t.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(t))
+        ms_e = ms(lambda: pipeline.process_batch_eager(cfg, calib, b))
+        ms_g = ms(lambda: pipeline.process_batch(cfg, calib, b))
+        summary[tag] = {"calls": len(order), "replays": replays,
+                        "kernels": len(kg), "eager_ms": ms_e,
+                        "replay_ms": ms_g}
+        say("graph", f"{tag}: {len(order)} calls over {GRAPH_POOL} batches "
+                     f"and two calibrations bit-equal to the eager body, "
+                     f"{replays} by replay with its counts; {len(kg)} "
+                     f"kernels a call on both; host {ms_e:.3f} ms eager, "
+                     f"{ms_g:.3f} ms replayed ({card})")
+    graphs.clear()
+    return summary
 
 
 def eval_inputs(torch, cfg, cal, n, P, seed, dtype, dev):
@@ -1039,9 +1226,9 @@ BUCKET_ROUTES = {"default": "lm_solve", "fused_system": "fused_system"}
 
 
 def run_buckets(torch, cfg, calib, batch):
-    """process_batch with each bucket's fit counted: per bucket (in the
-    pipeline's order) its width, active lanes, failed fits and the kernel
-    launches of its fit."""
+    """process_batch's eager body (a graph's replay calls no Python) with
+    each bucket's fit counted: per bucket (in the pipeline's order) its
+    width, active lanes, failed fits and the kernel launches of its fit."""
     from npswf_tpu_torch import kernels
     from npswf_tpu_torch.engine import pipeline
     fit = pipeline.fit_waveforms
@@ -1060,7 +1247,7 @@ def run_buckets(torch, cfg, calib, batch):
     pipeline.fit_waveforms = counted
     try:
         kernels.reset_counts()
-        out = pipeline.process_batch(cfg, calib, batch)
+        out = pipeline.process_batch_eager(cfg, calib, batch)
         torch.cuda.synchronize()
     finally:
         pipeline.fit_waveforms = fit
@@ -2428,6 +2615,9 @@ def run(torch) -> int:
     time_lm_launches(torch, cfg, calib, batch, records, card)
     del default_out, out
     t0 = time.perf_counter()
+    graph = check_graph(torch, dev, card)
+    say("graph", f"phase done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     search_wide = check_search_wide(torch, cfg, cal, calib, truth, batch,
                                     dev, card)
     say("search-wide", f"phase done in {time.perf_counter() - t0:.1f} s")
@@ -2470,6 +2660,7 @@ def run(torch) -> int:
                      f"({r['bound_by']}){lib}; {r['launches']} launches on "
                      f"its route ({card})")
     print(json.dumps({"kernels": list(records.values())}))
+    print(json.dumps({"graph": graph}))
     print(json.dumps({"segment": segment}))
     print(json.dumps({"buckets": buckets}))
     print(json.dumps({"models": models}))

@@ -10,7 +10,12 @@ reference's ``analyze``, TEST_2.C:540-1300): one event batch runs as
                      --> output-path resolution + time conversion
                      --> diagnostics
 
-with the reference's output paths: a cluster-gate failure keeps the raw
+as two halves on the device around one read of the bucket sizes: the
+search and the gate (``_search_and_gate``), then the fits, the resolution
+and the diagnostics (``_fit_and_resolve``). On the card they run as CUDA
+graph replays (``engine/graphs.py``) where ``graph_route`` admits the
+call; elsewhere the eager body (``process_batch_eager``) issues them op
+by op. The reference's output paths: a cluster-gate failure keeps the raw
 search values (times in bins, chi2 = -100); a failed fit converts the seed
 times to ns and keeps the seed amplitudes (chi2 = -100); a converged fit
 reports fitted amplitudes, t_fit*dt + corr_time_HMS - cortime -
@@ -36,7 +41,9 @@ from npswf_tpu_torch import kernels
 from npswf_tpu_torch.core.config import NPSConfig
 from npswf_tpu_torch.engine.diagnostics import block_diagnostics
 from npswf_tpu_torch.fit.errors import error_model
-from npswf_tpu_torch.fit.lm import FitInputs, count_rung_lanes, fit_waveforms
+from npswf_tpu_torch.fit.lm import (FitInputs, _ladder_fused, count_rung_lanes,
+                                    fit_waveforms)
+from npswf_tpu_torch.models.waveform import get_model
 from npswf_tpu_torch.ops.cluster_gate import cluster_gate
 from npswf_tpu_torch.ops.peak_search import find_pulses
 from npswf_tpu_torch.parallel.axis import Axis, require_axis
@@ -86,20 +93,22 @@ class PipelineOutput(NamedTuple):
     search_overflow: torch.Tensor   # [E, B] bool — present lanes not searched
 
 
-def _front(mask: torch.Tensor) -> torch.Tensor:
-    """Lane order with the masked lanes first, each group in index order
-    (a stable argsort of ~mask); each ``nonzero`` is a host sync."""
-    kernels.count("sync.engine.front_select", 2)
-    return torch.cat([torch.nonzero(mask).squeeze(1),
-                      torch.nonzero(~mask).squeeze(1)])
-
-
 def _slot(mask: torch.Tensor) -> torch.Tensor:
     """Each lane's position in ``_front(mask)``, in closed form."""
     m = mask.to(torch.int64)
     nm = m.sum()
     return torch.where(mask, torch.cumsum(m, 0) - 1,
                        nm + torch.cumsum(1 - m, 0) - 1)
+
+
+def _front(mask: torch.Tensor, slot: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """Lane order with the masked lanes first, each group in index order
+    (a stable argsort of ~mask): each lane's index scattered to its place
+    in that order (``slot``, else ``_slot(mask)``), with no host sync."""
+    lanes = torch.arange(mask.shape[0], device=mask.device)
+    return torch.empty_like(lanes).scatter_(
+        0, _slot(mask) if slot is None else slot, lanes)
 
 
 def _compact(mask: torch.Tensor, cap: int):
@@ -111,9 +120,359 @@ def _compact(mask: torch.Tensor, cap: int):
     place."""
     if cap >= mask.shape[0]:
         return slice(None), slice(None), mask
-    lanes = _front(mask)[:cap]
     pos = _slot(mask)
-    return lanes, torch.clamp(pos, max=cap - 1), mask & (pos < cap)
+    return (_front(mask, pos)[:cap], torch.clamp(pos, max=cap - 1),
+            mask & (pos < cap))
+
+
+# the calibration arrays a call reads
+CALIB_KEYS = ("preswf", "timeref", "cortime", "timerefacc", "spline_coeffs",
+              "spline_x0", "mfkern_rev", "mfint")
+
+
+def _calib_tensors(calib: Dict[str, torch.Tensor], dtype: torch.dtype,
+                   dev: torch.device) -> Dict[str, torch.Tensor]:
+    """The calibration as a call reads it: floating arrays in the batch's
+    type, ``timerefacc`` a 0-d tensor on the batch's device."""
+    return {"preswf": calib["preswf"],
+            "timeref": calib["timeref"].to(dtype),
+            "cortime": calib["cortime"].to(dtype),
+            "timerefacc": torch.as_tensor(calib["timerefacc"], dtype=dtype,
+                                          device=dev),
+            "coeffs": calib["spline_coeffs"].to(dtype),
+            "x0": calib["spline_x0"].to(dtype),
+            "kern": calib["mfkern_rev"].to(dtype),
+            "mfint": calib["mfint"].to(dtype)}
+
+
+def _bucket_widths(cfg: NPSConfig) -> Tuple[int, ...]:
+    """The pulse-count buckets' parameter widths: narrow (<=
+    fit_small_pulses), middle (<= fit_mid_pulses) and wide."""
+    P = cfg.maxwfpulses
+    Ps = max(1, min(cfg.fit_small_pulses, P))
+    if P == Ps:
+        return (Ps,)
+    Pm = min(cfg.fit_mid_pulses, P)
+    return (Ps, Pm, P) if Pm > Ps else (Ps, P)
+
+
+def _bucket_caps(cfg: NPSConfig, N: int) -> Tuple[int, ...]:
+    """Each bucket's capacity over N lanes; fit_capacity == 0 means "fit
+    every block": the wider buckets are uncapped too."""
+    cap_all = min(cfg.fit_capacity if cfg.fit_capacity > 0 else N, N)
+    cap_big = N if cfg.fit_capacity <= 0 else max(
+        min(N, 256), cap_all // max(cfg.fit_big_frac, 1))
+    return (cap_all,) + (cap_big,) * (len(_bucket_widths(cfg)) - 1)
+
+
+def _fit_model(cfg: NPSConfig) -> str:
+    return ("spline_ref_pallas" if cfg.model_name == "spline_ref"
+            else cfg.model_name)
+
+
+def graph_route(cfg: NPSConfig, device: torch.device,
+                block_axis: Optional[Axis] = None,
+                reduce_axes: Tuple[Axis, ...] = (),
+                plain: bool = False) -> bool:
+    """Whether process_batch issues a call's device work as CUDA graph
+    replays (``engine/graphs.py``): the batch is on the card, ``plain`` is
+    off, the call is no mesh rank's (no ``block_axis``, no
+    ``reduce_axes``) and K3 fits every bucket in one launch
+    (``fit.lm._ladder_fused``). Every other call runs the eager body."""
+    if device.type != "cuda" or plain or block_axis is not None or reduce_axes:
+        return False
+    model = get_model(_fit_model(cfg))
+    return all(_ladder_fused(cfg, model, Pb, device)
+               for Pb in _bucket_widths(cfg))
+
+
+class _Front(NamedTuple):
+    """What the search and the gate hand the fits (per lane unless said)."""
+    npulse: torch.Tensor            # [N] i32
+    seed_t_abs: torch.Tensor        # [N, P] seed times, absolute bins
+    seed_a: torch.Tensor            # [N, P] seed amplitudes
+    pulse_mask: torch.Tensor        # [N, P] bool
+    search_overflow: torch.Tensor   # [N] bool
+    n_search_dropped: torch.Tensor  # [] i32
+    gate: torch.Tensor              # [N] bool
+    flat_present: torch.Tensor      # [N] bool
+    buckets: Tuple[torch.Tensor, ...]  # [N] bool, each bucket's lanes
+    sizes: torch.Tensor             # [buckets] i64: their lane counts
+    n_dropped: torch.Tensor         # [] i32: lanes beyond the capacities
+
+
+def _search_and_gate(cfg: NPSConfig, cal: Dict[str, torch.Tensor],
+                     batch: EventBatch, block_axis: Optional[Axis],
+                     block_shards: int, plain: bool) -> _Front:
+    """The call's first half, all on the device: the peak search (with its
+    lane compaction under ``search_capacity``), the cluster gate, the
+    pulse-count buckets and their lane counts. ``cal`` is
+    ``_calib_tensors``'."""
+    signal = batch.signal
+    E, B, T = signal.shape
+    dtype, dev = signal.dtype, signal.device
+    N = E * B
+
+    present = batch.pres.to(torch.bool) & cal["preswf"][None, :]  # [E, B]
+    flat_sig = signal.reshape(N, T)
+    flat_present = present.reshape(N)
+    if batch.minsignal is not None:
+        minsignal = batch.minsignal.to(dtype).reshape(N)
+    else:
+        minsignal = flat_sig.amin(dim=1)
+    kern_flat = cal["kern"][None].expand(E, B, cfg.mfwidth).reshape(N, -1)
+    mfint_flat = cal["mfint"][None].expand(E, B).reshape(N)
+
+    # ---- peak search (optionally on the present lanes only) --------------
+    with span("engine.search"):
+        cap_s = min(cfg.search_capacity, N) if cfg.search_capacity > 0 else 0
+        n_search_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        search_overflow = torch.zeros((N,), dtype=torch.bool, device=dev)
+        compact = 0 < cap_s < N
+        kernels.count("engine.search_lanes", cap_s if compact else N)
+        if compact:
+            # the compaction: the first cap_s present lanes gathered in,
+            # their answers gathered back to every lane
+            with span("engine.search.compact"):
+                sel_s, posc_s, searched = _compact(flat_present, cap_s)
+                lanes_s = (flat_sig[sel_s], minsignal[sel_s],
+                           kern_flat[sel_s], mfint_flat[sel_s],
+                           flat_present[sel_s])
+            ps_c = find_pulses(cfg, *lanes_s, plain=plain)
+            del lanes_s  # the gathered lanes are the search's alone
+            with span("engine.search.compact"):
+                npulse = torch.where(searched, ps_c.npulse[posc_s],
+                                     0).to(torch.int32)
+                seed_t_abs = torch.where(searched[:, None],
+                                         ps_c.times[posc_s], 0.0)
+                seed_a = torch.where(searched[:, None], ps_c.amps[posc_s],
+                                     0.0)
+                pulse_mask = ps_c.valid[posc_s] & searched[:, None]
+                search_overflow = flat_present & ~searched
+                n_search_dropped = search_overflow.sum().to(torch.int32)
+        else:
+            ps = find_pulses(cfg, flat_sig, minsignal, kern_flat, mfint_flat,
+                             flat_present, plain=plain)
+            npulse, seed_t_abs, seed_a, pulse_mask = (ps.npulse, ps.times,
+                                                      ps.amps, ps.valid)
+
+    # ---- cluster gate, and the fit lanes in pulse-count buckets ----------
+    with span("engine.gate"):
+        gate = cluster_gate(cfg, signal, cal["timeref"], cal["timerefacc"],
+                            block_axis, block_shards).reshape(N)
+        fit_active = flat_present & gate & (npulse > 0)
+        widths = _bucket_widths(cfg)
+        buckets = [fit_active & (npulse <= widths[0])]
+        if len(widths) > 1:
+            big = fit_active & (npulse > widths[0])
+            if len(widths) == 3:
+                buckets.append(big & (npulse <= widths[1]))
+                big = big & (npulse > widths[1])
+            buckets.append(big)
+        sizes = torch.stack(buckets).sum(dim=1)
+        n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
+        for i, cap in enumerate(_bucket_caps(cfg, N)):
+            if cap < N:
+                n_dropped = n_dropped + torch.clamp(
+                    sizes[i] - cap, min=0).to(torch.int32)
+    return _Front(npulse, seed_t_abs, seed_a, pulse_mask, search_overflow,
+                  n_search_dropped, gate, flat_present, tuple(buckets), sizes,
+                  n_dropped)
+
+
+def _bucket_sizes(cfg: NPSConfig, sizes: torch.Tensor,
+                  N: int) -> Tuple[bool, ...]:
+    """The call's one read of its buckets' lane counts (a host sync):
+    which buckets have lanes to fit; the lanes they fit, up to their
+    capacities, count in ``fit.stage1_lanes``."""
+    n = sizes.tolist()
+    kernels.count("sync.engine.bucket_sizes")
+    lanes = sum(min(k, cap) for k, cap in zip(n, _bucket_caps(cfg, N)))
+    if lanes:
+        kernels.count("fit.stage1_lanes", lanes)
+    return tuple(k > 0 for k in n)
+
+
+def _fit_and_resolve(cfg: NPSConfig, cal: Dict[str, torch.Tensor],
+                     batch: EventBatch, front: _Front,
+                     filled: Tuple[bool, ...], block_axis: Optional[Axis],
+                     plain: bool) -> Tuple[PipelineOutput, Optional[torch.Tensor]]:
+    """The call's second half, all on the device: the fits of the buckets
+    ``filled`` names (those with lanes, ``_bucket_sizes``), the output-path
+    resolution and the diagnostics. Returns the output and the rung tallies of the fits K3
+    ran whole, on the device (None where none did)."""
+    signal = batch.signal
+    E, B, T = signal.shape
+    P = cfg.maxwfpulses
+    dtype, dev = signal.dtype, signal.device
+    N = E * B
+    flat_sig = signal.reshape(N, T)
+    timeref, cortime = cal["timeref"], cal["cortime"]
+    timerefacc = cal["timerefacc"]
+    npulse, seed_t_abs = front.npulse, front.seed_t_abs
+    seed_a, pulse_mask = front.seed_a, front.pulse_mask
+    flat_present = front.flat_present
+
+    M = 1 + 2 * P
+    blocks_flat = torch.arange(B, device=dev).repeat(E)
+    ped_seed_all = flat_sig[:, :cfg.ped_nsamples].mean(dim=1)   # ref :672-676
+    params = torch.zeros((N, M), dtype=dtype, device=dev)
+    chi2_ndf = torch.zeros((N,), dtype=dtype, device=dev)
+    converged = torch.zeros((N,), dtype=torch.bool, device=dev)
+    n_iter_lanes = torch.zeros((N,), dtype=torch.int32, device=dev)
+    fitted = torch.zeros((N,), dtype=torch.bool, device=dev)
+    rung_lanes = []   # the one-launch ladders' rung tallies, on the device
+    model_name = _fit_model(cfg)
+    for mask, cap_b, Pb, has_lanes in zip(front.buckets, _bucket_caps(cfg, N),
+                                          _bucket_widths(cfg), filled):
+        with span("engine.bucket"):
+            if not has_lanes:      # an empty bucket costs nothing
+                continue
+            # capacity covers every lane: fit in place, the bucket mask as
+            # `active` (no compaction permutation); else the first cap_b lanes
+            kernels.count("fit.launched_lanes", min(cap_b, N))
+            lanes, posc, infit = _compact(mask, cap_b)
+            sel_sig = flat_sig[lanes]
+            sel_blocks = blocks_flat[lanes]
+            sel_err = error_model(cfg, sel_sig)
+            inp = FitInputs(
+                y=sel_sig[:, cfg.fit_lo_bin:cfg.fit_hi_bin],
+                sigma=sel_err[:, cfg.fit_lo_bin:cfg.fit_hi_bin],
+                coeffs=cal["coeffs"][sel_blocks], x0=cal["x0"][sel_blocks],
+                t_seed=seed_t_abs[lanes][:, :Pb] - timeref[sel_blocks][:, None],
+                a_seed=seed_a[lanes][:, :Pb],
+                ped_seed=ped_seed_all[lanes],
+                pulse_mask=pulse_mask[lanes][:, :Pb],
+                active=mask[lanes],
+                timeref=timeref[sel_blocks])
+            fres = fit_waveforms(cfg, inp, model_name, plain=plain)
+            if fres.rung_lanes is not None:
+                rung_lanes.append(fres.rung_lanes)
+            pf = torch.cat([fres.params,
+                            torch.zeros((fres.params.shape[0], 2 * (P - Pb)),
+                                        dtype=dtype, device=dev)], dim=1)
+            params = torch.where(infit[:, None], pf[posc], params)
+            chi2_ndf = torch.where(infit, fres.chi2_ndf[posc], chi2_ndf)
+            converged = converged | (fres.converged[posc] & infit)
+            n_iter_lanes = torch.where(infit, fres.n_iter[posc], n_iter_lanes)
+            fitted = fitted | infit
+
+    # ---- output-path resolution ------------------------------------------
+    with span("engine.resolve"):
+        cortime_b = cortime[blocks_flat]
+        corr = batch.corr_time_HMS.to(dtype).repeat_interleave(B)   # [N]
+        t_param = params[:, 1::2]                       # [N, P] rel bins
+        a_param = params[:, 2::2]
+        seed_t_rel = seed_t_abs - timeref[blocks_flat][:, None]
+        t_rel = torch.where(fitted[:, None], t_param, seed_t_rel)
+        a_fin = torch.where((fitted & converged)[:, None], a_param, seed_a)
+        pedwf = torch.where(fitted, params[:, 0], ped_seed_all)
+
+        conv_term = (corr - cortime_b - timerefacc * cfg.dt)[:, None]
+        t_ns = t_rel * cfg.dt + conv_term               # ref :782-785
+        # gate-fail lanes keep raw bin-unit times; slots beyond npulse are zero
+        wftime = torch.where(
+            pulse_mask, torch.where(fitted[:, None], t_ns, seed_t_abs), 0.0)
+        wfampl = torch.where(pulse_mask, a_fin, 0.0)
+        chi2 = torch.where(fitted & converged, chi2_ndf, -100.0)
+
+        # timewf/amplwf: |time| closest to zero among valid pulses, first
+        # on tie
+        abs_t = torch.where(pulse_mask, torch.abs(wftime), float("inf"))
+        best = torch.argmin(abs_t, dim=1, keepdim=True)
+        has = fitted & (npulse > 0)
+        timewf = torch.where(has, torch.gather(wftime, 1, best)[:, 0], -100.0)
+        amplwf = torch.where(has, torch.gather(wfampl, 1, best)[:, 0], -100.0)
+
+        # h1/h2 entries (ref :988-997): gate-passed lanes, final amplitude > 20
+        h_mask = fitted[:, None] & pulse_mask & (wfampl > cfg.amp_h12_thres)
+        h1 = t_rel - timerefacc + corr[:, None] / cfg.dt            # ref :994
+
+    with span("engine.diagnostics"):
+        diag = block_diagnostics(cfg, signal)
+        enertot, integtot = diag["enertot"], diag["integtot"]
+        if block_axis is not None:
+            # event totals span every block: the row shards' per-block values,
+            # gathered in block order and summed as one device sums them
+            enertot, integtot = (
+                torch.cat(block_axis.all_gather(diag[k]), dim=-1).sum(dim=-1)
+                for k in ("ener_raw", "integ"))
+        n_succ = (fitted & converged).sum().to(torch.int32)
+        n_fail = (fitted & ~converged).sum().to(torch.int32)
+        n_high = (flat_present & (npulse > P - 2)).sum().to(torch.int32)
+
+    out = PipelineOutput(
+        wfnpulse=npulse.reshape(E, B),
+        wftime=wftime.reshape(E, B, P),
+        wfampl=wfampl.reshape(E, B, P),
+        pulse_valid=pulse_mask.reshape(E, B, P),
+        chi2=chi2.reshape(E, B),
+        timewf=timewf.reshape(E, B),
+        amplwf=amplwf.reshape(E, B),
+        pedwf=pedwf.reshape(E, B),
+        gate=front.gate.reshape(E, B),
+        fit_converged=(fitted & converged).reshape(E, B),
+        fit_n_iter=torch.where(fitted, n_iter_lanes, 0).reshape(E, B),
+        h1time=h1.reshape(E, B, P),
+        h2time=wftime.reshape(E, B, P),
+        h_mask=h_mask.reshape(E, B, P),
+        ampl=diag["ampl"], ener=diag["ener"], integ=diag["integ"],
+        bkg=diag["bkg"], noise=diag["noise"],
+        enertot=enertot, integtot=integtot,
+        n_fit_success=n_succ,
+        n_fit_failure=n_fail,
+        n_fit_dropped=front.n_dropped,
+        n_high_pulse=n_high,
+        n_search_dropped=front.n_search_dropped,
+        search_overflow=front.search_overflow.reshape(E, B))
+    return out, (torch.cat(rung_lanes) if rung_lanes else None)
+
+
+def _fold_tallies(tallies: Optional[torch.Tensor]) -> None:
+    """The rung tallies of the fits K3 ran whole, read once the call's work
+    is queued (a host sync), into fit.rungs and fit.retry_lanes."""
+    if tallies is not None:
+        kernels.count("sync.engine.rung_tallies")
+        count_rung_lanes(tallies.tolist())
+
+
+def _eager(cfg: NPSConfig, calib: Dict[str, torch.Tensor], batch: EventBatch,
+           block_axis: Optional[Axis], block_shards: int,
+           reduce_axes: Tuple[Axis, ...], plain: bool
+           ) -> Tuple[PipelineOutput, Tuple[bool, ...]]:
+    """The eager body, and which buckets had lanes."""
+    cal = _calib_tensors(calib, batch.signal.dtype, batch.signal.device)
+    front = _search_and_gate(cfg, cal, batch, block_axis, block_shards, plain)
+    E, B = batch.signal.shape[:2]
+    filled = _bucket_sizes(cfg, front.sizes, E * B)
+    out, tallies = _fit_and_resolve(cfg, cal, batch, front, filled,
+                                    block_axis, plain)
+    _fold_tallies(tallies)
+    if reduce_axes:
+        counts = torch.stack([out.n_fit_success, out.n_fit_failure,
+                              out.n_fit_dropped, out.n_high_pulse,
+                              out.n_search_dropped])
+        for ax in reduce_axes:
+            counts = ax.all_reduce(counts)
+        out = out._replace(**dict(zip(
+            ("n_fit_success", "n_fit_failure", "n_fit_dropped",
+             "n_high_pulse", "n_search_dropped"), counts.unbind())))
+    return out, filled
+
+
+def process_batch_eager(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
+                        batch: EventBatch, block_axis: Optional[Axis] = None,
+                        block_shards: int = 1,
+                        reduce_axes: Tuple[Axis, ...] = (),
+                        plain: bool = False) -> PipelineOutput:
+    """process_batch's body issued op by op, with process_batch's arguments
+    and answer: the search and the gate (``_search_and_gate``), the one
+    read of the bucket sizes (``_bucket_sizes``), the fits, the resolution
+    and the diagnostics (``_fit_and_resolve``), the read of the rung
+    tallies (``_fold_tallies``). Every call off the graph route runs it;
+    the graphs capture its two halves."""
+    return _eager(cfg, calib, batch, block_axis, block_shards, reduce_axes,
+                  plain)[0]
 
 
 def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
@@ -133,18 +492,27 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
     summed over every axis of ``reduce_axes``. Capacities act per shard,
     on the local lanes, as in the JAX package.
 
-    The call is the span ``engine.process_batch`` (``utils.timers.span``)
-    around ``engine.search`` (with ``search_capacity`` below the lane
-    count, ``engine.search.compact`` inside it around the lanes' selection
-    and gathers before the search and the gathers back after it),
-    ``engine.gate``, one ``engine.bucket`` a pulse-count bucket (its fit
-    ladder inside), ``engine.resolve`` and ``engine.diagnostics``;
-    ``kernels.counts`` takes the call, each host sync by its site, the
-    lanes handed to the search (``engine.search_lanes``), and for each
-    bucket the lanes it fits (``fit.stage1_lanes``) and the lanes it hands
-    to ``fit_waveforms`` (``fit.launched_lanes``: every lane in place);
-    where K3 ran a bucket's ladder whole, the lanes its rungs retried
-    (``fit.rungs``, ``fit.retry_lanes``) come back in one read at the end.
+    Where ``graph_route`` admits the call, its device work runs as two
+    CUDA graph replays around the read of the bucket sizes
+    (``engine/graphs.py``); every other call runs the eager body,
+    ``process_batch_eager``. Both give the same answer and the same
+    counts.
+
+    The call is the span ``engine.process_batch``; the eager body's spans
+    inside it are ``engine.search`` (with ``search_capacity`` below the
+    lane count, ``engine.search.compact`` inside it around the lanes'
+    selection and gathers before the search and the gathers back after
+    it), ``engine.gate``, one ``engine.bucket`` a pulse-count bucket (its
+    fit ladder inside), ``engine.resolve`` and ``engine.diagnostics``, the
+    graph route's ``engine.graph.replay`` and ``engine.graph.capture``.
+    ``kernels.counts`` takes the call, each host sync by its site (one
+    ``sync.engine.bucket_sizes`` a call, one ``sync.engine.rung_tallies``
+    where K3 ran a bucket's ladder whole), the lanes handed to the search
+    (``engine.search_lanes``), and for each bucket the lanes it fits
+    (``fit.stage1_lanes``) and the lanes it hands to ``fit_waveforms``
+    (``fit.launched_lanes``: every lane in place); where K3 ran a
+    bucket's ladder whole, the lanes its rungs retried (``fit.rungs``,
+    ``fit.retry_lanes``) come back in one read at the end.
     """
     if block_axis is not None or block_shards > 1:
         require_axis(block_axis, f"process_batch over {block_shards} block "
@@ -153,218 +521,12 @@ def process_batch(cfg: NPSConfig, calib: Dict[str, torch.Tensor],
         require_axis(ax, "each of process_batch's reduce_axes")
     kernels.count("engine.process_batch")
     with span("engine.process_batch"):
-        signal = batch.signal
-        E, B, T = signal.shape
-        P = cfg.maxwfpulses
-        dtype, dev = signal.dtype, signal.device
-        N = E * B
-
-        preswf = calib["preswf"]
-        timeref = calib["timeref"].to(dtype)
-        cortime = calib["cortime"].to(dtype)
-        timerefacc = torch.as_tensor(calib["timerefacc"], dtype=dtype, device=dev)
-        coeffs = calib["spline_coeffs"].to(dtype)
-        x0 = calib["spline_x0"].to(dtype)
-        kern = calib["mfkern_rev"].to(dtype)
-        mfint = calib["mfint"].to(dtype)
-
-        present = batch.pres.to(torch.bool) & preswf[None, :]       # [E, B]
-        flat_sig = signal.reshape(N, T)
-        flat_present = present.reshape(N)
-        if batch.minsignal is not None:
-            minsignal = batch.minsignal.to(dtype).reshape(N)
-        else:
-            minsignal = flat_sig.amin(dim=1)
-        kern_flat = kern[None].expand(E, B, cfg.mfwidth).reshape(N, -1)
-        mfint_flat = mfint[None].expand(E, B).reshape(N)
-
-        # ---- peak search (optionally on the present lanes only) ----------
-        with span("engine.search"):
-            cap_s = min(cfg.search_capacity, N) if cfg.search_capacity > 0 else 0
-            n_search_dropped = torch.zeros((), dtype=torch.int32, device=dev)
-            search_overflow = torch.zeros((N,), dtype=torch.bool, device=dev)
-            compact = 0 < cap_s < N
-            kernels.count("engine.search_lanes", cap_s if compact else N)
-            if compact:
-                # the compaction: the first cap_s present lanes gathered in,
-                # their answers gathered back to every lane
-                with span("engine.search.compact"):
-                    sel_s, posc_s, searched = _compact(flat_present, cap_s)
-                    lanes_s = (flat_sig[sel_s], minsignal[sel_s],
-                               kern_flat[sel_s], mfint_flat[sel_s],
-                               flat_present[sel_s])
-                ps_c = find_pulses(cfg, *lanes_s, plain=plain)
-                del lanes_s  # the gathered lanes are the search's alone
-                with span("engine.search.compact"):
-                    npulse = torch.where(searched, ps_c.npulse[posc_s],
-                                         0).to(torch.int32)
-                    seed_t_abs = torch.where(searched[:, None],
-                                             ps_c.times[posc_s], 0.0)
-                    seed_a = torch.where(searched[:, None], ps_c.amps[posc_s],
-                                         0.0)
-                    pulse_mask = ps_c.valid[posc_s] & searched[:, None]
-                    search_overflow = flat_present & ~searched
-                    n_search_dropped = search_overflow.sum().to(torch.int32)
-            else:
-                ps = find_pulses(cfg, flat_sig, minsignal, kern_flat, mfint_flat,
-                                 flat_present, plain=plain)
-                npulse, seed_t_abs, seed_a, pulse_mask = (ps.npulse, ps.times,
-                                                          ps.amps, ps.valid)
-
-        # ---- cluster gate ------------------------------------------------
-        with span("engine.gate"):
-            gate = cluster_gate(cfg, signal, timeref, timerefacc, block_axis,
-                                block_shards).reshape(N)
-            fit_active = flat_present & gate & (npulse > 0)
-
-        # ---- pulse-count buckets: narrow (<= fit_small_pulses), middle
-        #      (<= fit_mid_pulses) and wide parameter vectors ---------------
-        M = 1 + 2 * P
-        Ps = max(1, min(cfg.fit_small_pulses, P))
-        cap_all = min(cfg.fit_capacity if cfg.fit_capacity > 0 else N, N)
-        small_active = fit_active & (npulse <= Ps)
-        big_active = fit_active & (npulse > Ps)
-        blocks_flat = torch.arange(B, device=dev).repeat(E)
-        ped_seed_all = flat_sig[:, :cfg.ped_nsamples].mean(dim=1)   # ref :672-676
-
-        params = torch.zeros((N, M), dtype=dtype, device=dev)
-        chi2_ndf = torch.zeros((N,), dtype=dtype, device=dev)
-        converged = torch.zeros((N,), dtype=torch.bool, device=dev)
-        n_iter_lanes = torch.zeros((N,), dtype=torch.int32, device=dev)
-        fitted = torch.zeros((N,), dtype=torch.bool, device=dev)
-        n_dropped = torch.zeros((), dtype=torch.int32, device=dev)
-        rung_lanes = []   # the one-launch ladders' rung tallies, on the device
-        buckets = [(small_active, cap_all, Ps)]
-        if P > Ps:
-            # fit_capacity == 0 means "fit every block": the wide bucket is
-            # uncapped too
-            cap_big = N if cfg.fit_capacity <= 0 else max(
-                min(N, 256), cap_all // max(cfg.fit_big_frac, 1))
-            Pm = min(cfg.fit_mid_pulses, P)
-            if Pm > Ps:
-                mid_active = big_active & (npulse <= Pm)
-                big_active = big_active & (npulse > Pm)
-                buckets.append((mid_active, cap_big, Pm))
-            buckets.append((big_active, cap_big, P))
-        model_name = ("spline_ref_pallas" if cfg.model_name == "spline_ref"
-                      else cfg.model_name)
-        for mask, cap_b, Pb in buckets:
-            with span("engine.bucket"):
-                # host sync: an empty bucket costs nothing
-                n_mask = int(mask.sum())
-                kernels.count("sync.engine.bucket_size")
-                n_dropped = n_dropped + max(n_mask - cap_b, 0)
-                if n_mask == 0:
-                    continue
-                kernels.count("fit.stage1_lanes", min(n_mask, cap_b))
-                # capacity covers every lane: fit in place, the bucket mask as
-                # `active` (no compaction permutation); else the first cap_b lanes
-                kernels.count("fit.launched_lanes", min(cap_b, N))
-                lanes, posc, infit = _compact(mask, cap_b)
-                sel_sig = flat_sig[lanes]
-                sel_blocks = blocks_flat[lanes]
-                sel_err = error_model(cfg, sel_sig)
-                inp = FitInputs(
-                    y=sel_sig[:, cfg.fit_lo_bin:cfg.fit_hi_bin],
-                    sigma=sel_err[:, cfg.fit_lo_bin:cfg.fit_hi_bin],
-                    coeffs=coeffs[sel_blocks], x0=x0[sel_blocks],
-                    t_seed=seed_t_abs[lanes][:, :Pb] - timeref[sel_blocks][:, None],
-                    a_seed=seed_a[lanes][:, :Pb],
-                    ped_seed=ped_seed_all[lanes],
-                    pulse_mask=pulse_mask[lanes][:, :Pb],
-                    active=mask[lanes],
-                    timeref=timeref[sel_blocks])
-                fres = fit_waveforms(cfg, inp, model_name, plain=plain)
-                if fres.rung_lanes is not None:
-                    rung_lanes.append(fres.rung_lanes)
-                pf = torch.cat([fres.params,
-                                torch.zeros((fres.params.shape[0], 2 * (P - Pb)),
-                                            dtype=dtype, device=dev)], dim=1)
-                params = torch.where(infit[:, None], pf[posc], params)
-                chi2_ndf = torch.where(infit, fres.chi2_ndf[posc], chi2_ndf)
-                converged = converged | (fres.converged[posc] & infit)
-                n_iter_lanes = torch.where(infit, fres.n_iter[posc], n_iter_lanes)
-                fitted = fitted | infit
-
-        # ---- output-path resolution --------------------------------------
-        with span("engine.resolve"):
-            cortime_b = cortime[blocks_flat]
-            corr = batch.corr_time_HMS.to(dtype).repeat_interleave(B)   # [N]
-            t_param = params[:, 1::2]                       # [N, P] rel bins
-            a_param = params[:, 2::2]
-            seed_t_rel = seed_t_abs - timeref[blocks_flat][:, None]
-            t_rel = torch.where(fitted[:, None], t_param, seed_t_rel)
-            a_fin = torch.where((fitted & converged)[:, None], a_param, seed_a)
-            pedwf = torch.where(fitted, params[:, 0], ped_seed_all)
-
-            conv_term = (corr - cortime_b - timerefacc * cfg.dt)[:, None]
-            t_ns = t_rel * cfg.dt + conv_term               # ref :782-785
-            # gate-fail lanes keep raw bin-unit times; slots beyond npulse are zero
-            wftime = torch.where(
-                pulse_mask, torch.where(fitted[:, None], t_ns, seed_t_abs), 0.0)
-            wfampl = torch.where(pulse_mask, a_fin, 0.0)
-            chi2 = torch.where(fitted & converged, chi2_ndf, -100.0)
-
-            # timewf/amplwf: |time| closest to zero among valid pulses, first
-            # on tie
-            abs_t = torch.where(pulse_mask, torch.abs(wftime), float("inf"))
-            best = torch.argmin(abs_t, dim=1, keepdim=True)
-            has = fitted & (npulse > 0)
-            timewf = torch.where(has, torch.gather(wftime, 1, best)[:, 0], -100.0)
-            amplwf = torch.where(has, torch.gather(wfampl, 1, best)[:, 0], -100.0)
-
-            # h1/h2 entries (ref :988-997): gate-passed lanes, final amplitude > 20
-            h_mask = fitted[:, None] & pulse_mask & (wfampl > cfg.amp_h12_thres)
-            h1 = t_rel - timerefacc + corr[:, None] / cfg.dt            # ref :994
-
-        with span("engine.diagnostics"):
-            diag = block_diagnostics(cfg, signal)
-            enertot, integtot = diag["enertot"], diag["integtot"]
-            if block_axis is not None:
-                # event totals span every block: the row shards' per-block values,
-                # gathered in block order and summed as one device sums them
-                enertot, integtot = (
-                    torch.cat(block_axis.all_gather(diag[k]), dim=-1).sum(dim=-1)
-                    for k in ("ener_raw", "integ"))
-            n_succ = (fitted & converged).sum().to(torch.int32)
-            n_fail = (fitted & ~converged).sum().to(torch.int32)
-            n_high = (flat_present & (npulse > P - 2)).sum().to(torch.int32)
-            if rung_lanes:
-                # the rung tallies of the fits K3 ran whole come back to the
-                # host (a sync) once the call's work is queued
-                kernels.count("sync.engine.rung_tallies")
-                count_rung_lanes(torch.cat(rung_lanes).tolist())
-        if reduce_axes:
-            counts = torch.stack([n_succ, n_fail, n_dropped.to(torch.int32),
-                                  n_high, n_search_dropped])
-            for ax in reduce_axes:
-                counts = ax.all_reduce(counts)
-            n_succ, n_fail, n_dropped, n_high, n_search_dropped = counts.unbind()
-
-        return PipelineOutput(
-            wfnpulse=npulse.reshape(E, B),
-            wftime=wftime.reshape(E, B, P),
-            wfampl=wfampl.reshape(E, B, P),
-            pulse_valid=pulse_mask.reshape(E, B, P),
-            chi2=chi2.reshape(E, B),
-            timewf=timewf.reshape(E, B),
-            amplwf=amplwf.reshape(E, B),
-            pedwf=pedwf.reshape(E, B),
-            gate=gate.reshape(E, B),
-            fit_converged=(fitted & converged).reshape(E, B),
-            fit_n_iter=torch.where(fitted, n_iter_lanes, 0).reshape(E, B),
-            h1time=h1.reshape(E, B, P),
-            h2time=wftime.reshape(E, B, P),
-            h_mask=h_mask.reshape(E, B, P),
-            ampl=diag["ampl"], ener=diag["ener"], integ=diag["integ"],
-            bkg=diag["bkg"], noise=diag["noise"],
-            enertot=enertot, integtot=integtot,
-            n_fit_success=n_succ,
-            n_fit_failure=n_fail,
-            n_fit_dropped=n_dropped,
-            n_high_pulse=n_high,
-            n_search_dropped=n_search_dropped,
-            search_overflow=search_overflow.reshape(E, B))
+        if graph_route(cfg, batch.signal.device, block_axis, reduce_axes,
+                       plain):
+            from npswf_tpu_torch.engine import graphs
+            return graphs.run(cfg, calib, batch)
+        return _eager(cfg, calib, batch, block_axis, block_shards,
+                      reduce_axes, plain)[0]
 
 
 # ----------------------------------------------------------------------

@@ -50,6 +50,18 @@ def _max_pulses(index: int, dtype: torch.dtype, K: int) -> int:
             kernels.dtype_code(dtype), K))
 
 
+def ladder_pullbacks(cfg: NPSConfig, device: torch.device) -> torch.Tensor:
+    """The pull-back values of a ladder launch on ``device`` (fp64), made
+    on first use and kept; a CUDA graph's capture, which may copy nothing
+    from the host, finds them made."""
+    key = (device, tuple(map(float, cfg.lm_stage3_pullbacks)))
+    pullbacks = _PULLBACKS.get(key)
+    if pullbacks is None:
+        pullbacks = _PULLBACKS[key] = torch.tensor(
+            key[1], dtype=torch.float64, device=device)
+    return pullbacks
+
+
 def lm_solve_plain(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
                    param_mask, active, max_iter: int, lam0, iter_budget=None):
     """The plain version of the kernel, on any device: the generic LM
@@ -139,11 +151,7 @@ def _launch(cfg: NPSConfig, coeffs_pad, x0, y, w, u0, lo, hi, p_seed,
         budget2 = budget_of(b2, max_iter2)
         rungs = ladder_rungs(cfg)
         if rungs > 1:
-            key = (dev, tuple(map(float, cfg.lm_stage3_pullbacks)))
-            pullbacks = _PULLBACKS.get(key)
-            if pullbacks is None:
-                pullbacks = _PULLBACKS[key] = torch.tensor(
-                    key[1], dtype=torch.float64, device=dev)
+            pullbacks = ladder_pullbacks(cfg, dev)
         outs += [torch.empty((N, M), dtype=dt, device=dev),
                  torch.empty((N,), dtype=dt, device=dev),
                  torch.empty((N,), dtype=torch.uint8, device=dev),

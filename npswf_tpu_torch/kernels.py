@@ -21,11 +21,15 @@ merge's members, those
 deflated on its pool and the pool's width (``io.merge.*``).
 ``count_launch``, ``count_plain`` and
 ``count`` add to them under a lock: the segment executor runs
-``process_batch`` on two threads.
+``process_batch`` on two threads. Inside ``recording()`` a thread's counts
+go to counters of its own instead, and ``add`` adds such counters to the
+process's: what a CUDA graph's capture issues runs at its replays
+(``engine/graphs.py``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -58,21 +62,49 @@ launches: collections.Counter = collections.Counter()
 plain_calls: collections.Counter = collections.Counter()
 counts: collections.Counter = collections.Counter()
 _count_lock = threading.Lock()
+_local = threading.local()      # .recorded: the counters of recording()
+
+
+def _add(i: int, name: str, n: int) -> None:
+    recorded = getattr(_local, "recorded", None)
+    if recorded is not None:
+        recorded[i][name] += n
+        return
+    with _count_lock:
+        (launches, plain_calls, counts)[i][name] += n
 
 
 def count_launch(name: str) -> None:
-    with _count_lock:
-        launches[name] += 1
+    _add(0, name, 1)
 
 
 def count_plain(name: str) -> None:
-    with _count_lock:
-        plain_calls[name] += 1
+    _add(1, name, 1)
 
 
 def count(name: str, n: int = 1) -> None:
+    _add(2, name, n)
+
+
+@contextlib.contextmanager
+def recording():
+    """This thread's launches, plain calls and counters, in three Counters
+    of their own (yielded as a tuple) in place of the process's."""
+    recorded = (collections.Counter(), collections.Counter(),
+                collections.Counter())
+    outer = getattr(_local, "recorded", None)
+    _local.recorded = recorded
+    try:
+        yield recorded
+    finally:
+        _local.recorded = outer
+
+
+def add(recorded) -> None:
+    """Add ``recording()``'s three Counters to the process's."""
     with _count_lock:
-        counts[name] += n
+        for mine, theirs in zip((launches, plain_calls, counts), recorded):
+            mine.update(theirs)
 
 
 def reset_counts() -> None:

@@ -29,10 +29,12 @@ On a CUDA device each stage worker issues its work on a stream of its
 own: the upload from pinned host memory, ``process_batch`` (whose kernels
 launch on the current stream) and the packet's copy back into pinned
 memory, after which it records an event; the main thread's in-order fetch
-waits on that event. ``process_batch`` itself waits for the device a few
-times a batch (bucket sizes, compaction), so each worker runs its batch
-to the end; the two workers overlap one batch's host work with the
-other's device work.
+waits on that event. ``process_batch`` itself waits for the device twice
+a batch (the bucket sizes, the fit's rung tallies), so each worker runs
+its batch to the end; the two workers overlap one batch's host work with
+the other's device work. On the card each worker's calls replay CUDA
+graphs of an instance it checks out for the call (``engine/graphs.py``),
+so two instances serve a pass and the next pass's workers reuse them.
 
 The device is the card unless the caller asks for the CPU
 (``device="cpu"``); without a card that is an error, never a fallback.

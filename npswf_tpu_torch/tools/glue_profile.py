@@ -1,7 +1,9 @@
 """Itemize the per-batch device budget by stage ablation.
 
 Ported from npswf_tpu/tools/glue_profile.py. Each variant stubs exactly one
-stage of ``process_batch`` with shape- and dtype-identical constants: the
+stage of ``process_batch`` (its eager body, which calls the stages at every
+call where a CUDA graph's replay would not) with shape- and
+dtype-identical constants: the
 search stub hands back the REAL search result, computed once, so that the
 fit's lanes, seeds and iteration counts stay those of the full batch and
 the fit's marginal is not contaminated by a changed workload; the fit and
@@ -144,8 +146,8 @@ def main(argv=None) -> int:
     for name, (repls, c) in variants.items():
         with _patched(pl, **repls):
             times[name] = batch_slope(
-                lambda c=c: pl.process_batch(c, calib, batch), dev, args.k1,
-                args.k2, args.iters) * 1e3
+                lambda c=c: pl.process_batch_eager(c, calib, batch), dev,
+                args.k1, args.k2, args.iters) * 1e3
         print(f"[glue] {name}: {times[name]:.3f} ms/batch (slope)",
               file=sys.stderr)
 

@@ -268,20 +268,16 @@ def _batch(cfg, seed=5, n_events=4):
 
 def _stand_in_card(monkeypatch, launches):
     """lm_ladder_kernel as the card runs it, on the CPU: lanes taken as on
-    the card, and the masked ladder, counted as one K3 launch, with every
-    counter its plain arithmetic touches restored (a launch counts nothing
-    but itself), its tallies a device tensor the host does not read."""
+    the card, and the masked ladder, counted as one K3 launch, with what its
+    plain arithmetic counts kept apart (a launch counts nothing but
+    itself), its tallies a device tensor the host does not read."""
     route = tlm._ladder_fused
     monkeypatch.setattr(tlm, "_ladder_fused", lambda cfg, model, P, device:
                         route(cfg, model, P, torch.device("cuda")))
 
     def card(cfg, *args):
-        saved = (collections.Counter(kernels.counts),
-                 collections.Counter(kernels.plain_calls))
-        out = masked_ladder(cfg, *args)
-        for counter, old in zip((kernels.counts, kernels.plain_calls), saved):
-            counter.clear()
-            counter.update(old)
+        with kernels.recording():
+            out = masked_ladder(cfg, *args)
         kernels.count_launch(kernels.LM_SOLVE)
         launches.append(int(args[9].sum()))
         return out
@@ -325,7 +321,8 @@ def test_folded_tallies_count_what_the_host_ladder_counts(monkeypatch,
     assert counts["fit.rungs"] == (fitted * (1 + len(cfg.lm_stage3_pullbacks))
                                    if stage3 else fitted)
     sites = {k for k in counts if k.startswith("sync.")}
-    assert sites == {"sync.engine.bucket_size", "sync.engine.rung_tallies"}
+    assert sites == {"sync.engine.bucket_sizes", "sync.engine.rung_tallies"}
+    assert counts["sync.engine.bucket_sizes"] == 1
     assert counts["sync.engine.rung_tallies"] == 1
     assert {"sync.fit.retry_select", "sync.fit.ladder_any"} <= set(host_counts)
 

@@ -164,7 +164,8 @@ def test_ladder_counters_equal_an_independent_count(monkeypatch, stage3):
         assert rungs == len(fits)
         assert counts["fit.retry_lanes"] == sum(failed1)
     sites = _sync_sites(counts)
-    assert sites.pop("engine.bucket_size") == 3
+    # the call's one read of its three buckets' sizes
+    assert sites.pop("engine.bucket_sizes") == 1
     assert sites.pop("fit.retry_select") == rungs
     # one test a rung, and one more where the ladder stops before its end
     assert rungs <= sites.pop("fit.ladder_any") <= rungs + len(fits)
@@ -174,15 +175,26 @@ def test_ladder_counters_equal_an_independent_count(monkeypatch, stage3):
 
 
 def test_front_select_counts_its_two_syncs():
-    """A capped bucket compacts its lanes with _front: two nonzero calls."""
+    """A capped bucket compacts its lanes with _front, which now makes no
+    sync: the call's engine syncs are its one read of the bucket sizes,
+    and its answer keeps the order the two nonzero calls gave (the capped
+    bucket fits its first four lanes in index order)."""
     cfg = NPSConfig(**LADDER, fit_capacity=4)
     calib, batch = _batch(cfg)
     kernels.reset_counts()
-    pipeline.process_batch(cfg, calib, batch)
+    out = pipeline.process_batch(cfg, calib, batch)
     sites = _sync_sites(kernels.counts)
     kernels.reset_counts()
-    assert sites["engine.front_select"] > 0
-    assert sites["engine.front_select"] % 2 == 0
+    assert {k: v for k, v in sites.items() if k.startswith("engine.")} == {
+        "engine.bucket_sizes": 1}
+    fitted = out.fit_n_iter.reshape(-1) > 0
+    npulse = out.wfnpulse.reshape(-1)
+    small = ((batch.pres & calib["preswf"][None, :]).reshape(-1)
+             & out.gate.reshape(-1) & (npulse > 0)
+             & (npulse <= cfg.fit_small_pulses))
+    assert int(small.sum()) > 4
+    assert torch.equal(torch.nonzero(fitted & small).squeeze(1),
+                       torch.nonzero(small).squeeze(1)[:4])
 
 
 def test_counts_report_names_every_counter():
